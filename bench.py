@@ -1,26 +1,23 @@
-"""Benchmark entry: prints ONE JSON line for the driver.
+"""Benchmark entry: prints ONE JSON line.
 
 Two headline numbers at the reference default workload — 1280x720,
-8 bounces, 1 spp/frame, env map (global_preprocessor_flags.h:30-40):
+8 bounces, 1 spp/frame, glass_spheres, equirect env from the seeded
+procedural 512x256 sky, stochastic sampling
+(global_preprocessor_flags.h:30-40):
 
-1. ``value``: forward path-trace throughput in Mrays/s/chip, measured
-   with the reference's offline protocol (warmup frames, then mean
-   wall-clock ms/frame, Application.cpp:420-452).
-2. ``fwd_bwd_Mrays_per_s`` / ``fwd_bwd_ms_per_step``: the driver metric
-   (BASELINE.json "Mrays/s/chip fwd+bwd") — value_and_grad of the L2
-   pixel loss through the full bounce loop via the adjoint Pallas
-   megakernel, gradients to sphere centers + albedos + every env
-   texel. Protocol: K=16 steps fused per dispatch (lax.scan), >=6
-   warm calls, mean over 2 independently timed spans;
-   ``fwd_bwd_spread`` records the relative span spread
+1. ``value``: forward path-trace throughput in primary Mrays/s through
+   the Pallas kernel, with the reference's offline protocol (warmup,
+   then mean wall-clock ms/frame, Application.cpp:420-452).
+2. ``fwd_bwd_ms_per_step`` / ``fwd_bwd_Mrays_per_s``: value_and_grad of
+   the L2 pixel loss through the full bounce loop (XLA's adjoint),
+   gradients to sphere centers + albedos + every env texel; K steps
+   fused per dispatch, mean over 2 independently timed spans
    (diff/benchgrad.py).
 
-Ray accounting uses PRIMARY rays (W*H*spp), the conservative
-convention (bounce segments would be ~9x higher).
+Every result names the device it ran on. A run that finds no GPU fails;
+it does not fall back to the CPU.
 
-vs_baseline: the reference publishes no numbers (BASELINE.md), so the
-comparison is against the driver-set target of 500 Mrays/s/chip
-(BASELINE.json north star): vs_baseline = value / 500.
+  BENCH_FRAMES=128 BENCH_GRAD_STEPS=16 python bench.py
 """
 
 import json
@@ -28,75 +25,56 @@ import os
 import sys
 
 
-def main() -> None:
-    import jax
+def main() -> int:
+    from cpuperformanceraytracer_tpu.utils.device import card_info, gpu_devices
 
-    frames = int(os.environ.get("BENCH_FRAMES", "128"))
-    grad_steps = int(os.environ.get("BENCH_GRAD_STEPS", "64"))
-    backend = os.environ.get("BENCH_BACKEND", "")
+    try:
+        devices = gpu_devices()
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    dev = devices[0]
 
-    from cpuperformanceraytracer_tpu.config import RenderConfig
+    from cpuperformanceraytracer_tpu.config import BENCH_CONFIGS
+    from cpuperformanceraytracer_tpu.diff.benchgrad import fwd_bwd_benchmark
     from cpuperformanceraytracer_tpu.render.driver import OfflineRenderer
+    from cpuperformanceraytracer_tpu.scene.presets import scene_by_name
     from cpuperformanceraytracer_tpu.texture.procedural import gradient_sky
-    from cpuperformanceraytracer_tpu.texture.texture import (
-        load_texture,
-        texture_from_array,
+    from cpuperformanceraytracer_tpu.texture.texture import texture_from_array
+    from cpuperformanceraytracer_tpu.utils.compile_cache import (
+        setup_compile_cache,
     )
 
-    ref_hdr = "/root/reference/Textures/HDR_040_Field_Env.hdr"
-    if os.path.exists(ref_hdr):
-        texture = load_texture(ref_hdr)
-    else:
-        texture = texture_from_array(gradient_sky(512, 256))
+    setup_compile_cache()
+    frames = int(os.environ.get("BENCH_FRAMES", "128"))
+    grad_steps = int(os.environ.get("BENCH_GRAD_STEPS", "16"))
+    texture = texture_from_array(gradient_sky(512, 256))
+    cfg = BENCH_CONFIGS["reference_default"].replace(num_frames=frames)
 
-    cfg = RenderConfig(
-        width=1280, height=720, spp=1, bounces=8,
-        scene="glass_spheres", env_mode="equirect",
-        env_sampling="stochastic", rng="wang",
-        num_frames=frames, warmup_frames=2,
-        backend="pallas",  # the TPU megakernel path (parity-tested vs xla)
-        # best of the v5e round-3 sweep (scripts/perf_sweep_r3): (16,128)
-        # blocks + one early-exit check after segment 0 (sky blocks die
-        # there; later checks cost more scratch traffic than they save)
-        tile_height=16, tile_width=128, exit_granularity=8,
-    )
-    if backend:
-        cfg = cfg.replace(backend=backend)
-
-    renderer = OfflineRenderer(cfg, texture=texture, silent=True)
-    timer = renderer.run()
-
-    rays_per_frame = cfg.width * cfg.height * cfg.spp
-    mrays = timer.rays_per_second(rays_per_frame) / 1e6
-    target = 500.0  # Mrays/s/chip, BASELINE.json north star
+    timer = OfflineRenderer(cfg, texture=texture, silent=True).run()
+    rays = cfg.width * cfg.height * cfg.spp
     out = {
-        "metric": "fwd_primary_Mrays_per_s_per_chip_1280x720_8bounce",
-        "value": round(mrays, 2),
+        "metric": "fwd_primary_Mrays_per_s_1280x720_8bounce",
+        "value": round(timer.rays_per_second(rays) / 1e6, 2),
         "unit": "Mrays/s",
-        "vs_baseline": round(mrays / target, 4),
+        "ms_per_frame": round(timer.mean_ms, 4),
     }
 
-    # ---- fwd+bwd headline (the BASELINE.json driver metric) ----------
-    try:
-        from cpuperformanceraytracer_tpu.diff.benchgrad import (
-            fwd_bwd_benchmark,
-        )
-        from cpuperformanceraytracer_tpu.scene.presets import scene_by_name
-
-        gcfg = cfg.replace(rng="counter", num_frames=1)
-        scene, cam = scene_by_name(gcfg.scene)
-        g = fwd_bwd_benchmark(gcfg, scene, cam, texture, steps=grad_steps)
-        out.update({
-            "fwd_bwd_ms_per_step": round(g["ms_per_step"], 3),
-            "fwd_bwd_Mrays_per_s": round(g["Mrays_per_s"], 2),
-            "fwd_bwd_spread": round(g["spread"], 4),
-            "fwd_bwd_span_ms": g["span_ms"],
-            "fwd_bwd_grads_finite": g["grads_finite"],
-        })
-    except Exception as e:  # keep the forward headline parseable
-        out["fwd_bwd_error"] = f"{type(e).__name__}: {e}"
-
+    gcfg = cfg.replace(rng="counter", num_frames=1)
+    scene, cam = scene_by_name(gcfg.scene)
+    g = fwd_bwd_benchmark(gcfg, scene, cam, texture, steps=grad_steps,
+                          steps_per_dispatch=4)
+    out.update({
+        "fwd_bwd_ms_per_step": round(g["ms_per_step"], 3),
+        "fwd_bwd_Mrays_per_s": round(g["Mrays_per_s"], 2),
+        "fwd_bwd_spread": round(g["spread"], 4),
+        "fwd_bwd_span_ms": g["span_ms"],
+        "fwd_bwd_grads_finite": g["grads_finite"],
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(devices), "card": card_info()},
+    })
     print(json.dumps(out))
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Command-line drivers — the TPU-native analog of the reference's
-application shell (Source.cpp / Application.cpp).
+"""Command-line drivers — the analog of the reference's application
+shell (Source.cpp / Application.cpp).
 
 The reference's two modes map as:
   RENDER_OFFLINE 1  -> `render` (N-frame progressive render -> BMP/PNG,
@@ -12,10 +12,13 @@ plus the new capabilities:
   `bench`    the five BASELINE.json configs by name
   `inverse`  inverse-rendering demo (config 4)
 
-Example:
+Example (the reference default workload under the procedural sky):
   python -m cpuperformanceraytracer_tpu.app.cli render \
       --scene glass_spheres --width 1280 --height 720 --frames 600 \
-      --env /root/reference/Textures/HDR_040_Field_Env.hdr -o out.bmp
+      --env procedural --backend pallas -o out.bmp
+
+A long offline render survives preemption with --checkpoint PATH
+--checkpoint-every N: rerunning the same command resumes from PATH.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def _cfg_from_args(a) -> RenderConfig:
         num_frames=a.frames, warmup_frames=a.warmup, scene=a.scene,
         env_mode=env_mode, env_sampling=a.env_sampling, rng=a.rng,
         roulette=a.roulette, backend=a.backend, exposure=a.exposure,
-    ).with_auto_tiles().validate()
+    ).validate()
 
 
 def _texture_from_args(a):
@@ -120,7 +123,7 @@ def _poll_keys() -> str:
 def cmd_watch(a) -> int:
     """Progressive render with a live view: rewrite the output file every
     --interval frames and (with --live) draw the current accumulation in
-    the terminal with a per-frame stats line — the TPU-native analog of
+    the terminal with a per-frame stats line — the analog of
     the reference's interactive window + title-bar frame times
     (Application.cpp:196-379, 308-335). Keys during the loop (tty only):
     's' dumps a timestamped screenshot (the reference's 's' key,
@@ -129,9 +132,10 @@ def cmd_watch(a) -> int:
     import contextlib
     import time
 
+    import jax
+
     from cpuperformanceraytracer_tpu.render.driver import OfflineRenderer, RenderState
     from cpuperformanceraytracer_tpu.render.frame import zero_accum
-    from cpuperformanceraytracer_tpu.utils.timing import device_sync
 
     cfg = _cfg_from_args(a)
     r = OfflineRenderer(cfg, texture=_texture_from_args(a), silent=a.silent)
@@ -139,14 +143,14 @@ def cmd_watch(a) -> int:
 
     # warm up UNTIMED: compile both dispatch widths the loop will use
     # (the main interval and the tail remainder) into a scratch state so
-    # no Mosaic/XLA compile lands inside a timed span
+    # no compile lands inside a timed span
     tail = cfg.num_frames % a.interval
     keep = r.state
     r.state = RenderState(accum=zero_accum(cfg), frame=0)
     r.step_k(min(a.interval, cfg.num_frames))
     if tail and tail != a.interval:
         r.step_k(tail)
-    device_sync(r.state.accum)
+    jax.block_until_ready(r.state.accum)
     r.state = keep
 
     # put the tty in cbreak so single keypresses arrive without Enter
@@ -178,7 +182,7 @@ def cmd_watch(a) -> int:
             todo = min(a.interval, cfg.num_frames - i)
             t0 = time.perf_counter()
             r.step_k(todo)
-            device_sync(r.state.accum)
+            jax.block_until_ready(r.state.accum)
             per_frame = (time.perf_counter() - t0) / todo * 1e3
             window.extend([per_frame] * todo)
             roll_ms = sum(window) / len(window)
@@ -208,88 +212,59 @@ def cmd_watch(a) -> int:
 
 def cmd_bench(a) -> int:
     import json
-    import os
 
     from cpuperformanceraytracer_tpu.render.driver import OfflineRenderer
     from cpuperformanceraytracer_tpu.texture.procedural import gradient_sky
-    from cpuperformanceraytracer_tpu.texture.texture import (
-        load_texture,
-        texture_from_array,
-    )
+    from cpuperformanceraytracer_tpu.texture.texture import texture_from_array
 
     names = a.configs or [k for k in BENCH_CONFIGS
                           if k not in ("inverse_render", "offline_4k")]
-    # same env texture policy as bench.py: the reference HDR when present
-    # (512x256, the reference's own asset), procedural sky of the same
-    # texel count otherwise — and SAY which one the numbers used
-    ref_hdr = "/root/reference/Textures/HDR_040_Field_Env.hdr"
-    use_hdr = os.path.exists(ref_hdr)
     for name in names:
         cfg = BENCH_CONFIGS[name].replace(num_frames=a.frames)
-        tex = env_tex = None
-        if cfg.env_mode != "none":
-            tex = (load_texture(ref_hdr) if use_hdr
-                   else texture_from_array(gradient_sky(512, 256)))
-            env_tex = "HDR_040_Field_Env" if use_hdr else "procedural_512x256"
+        if a.backend:
+            cfg = cfg.replace(backend=a.backend)
+        # the env map is the seeded procedural 512x256 sky (the
+        # reference asset's texel count)
+        tex = (texture_from_array(gradient_sky(512, 256))
+               if cfg.env_mode != "none" else None)
         r = OfflineRenderer(cfg, texture=tex, silent=True)
         t = r.run()
         rays = cfg.width * cfg.height * cfg.spp
         print(json.dumps({
-            "config": name, "ms_per_frame": round(t.mean_ms, 3),
+            "config": name, "backend": cfg.backend,
+            "ms_per_frame": round(t.mean_ms, 3),
             "Mrays_per_s": round(t.rays_per_second(rays) / 1e6, 2),
-            "env_texture": env_tex,
         }))
     return 0
 
 
 def cmd_bench_grad(a) -> int:
     """Timed fwd+bwd (value_and_grad of the L2 pixel loss) at a stated
-    workload — the backward-pass throughput metric bench.py and
-    BASELINE.md report.
+    workload — the backward-pass throughput metric bench.py reports.
 
     Gradients flow to the full differentiable surface (sphere centers,
-    albedos, env texels). --backend pallas (the production path) uses
-    the adjoint Pallas megakernel (kernels/backward.py: in-VMEM path
-    replay + sorted env segment-sum); --backend xla uses the oracle
-    integrator with path-replay rematerialization (diff/path_replay.py).
-    The loop being differentiated is the reference bounce loop,
-    demofox_path_tracing_optimization_v4.cpp:722-910; the measurement
-    protocol (warmup + mean over fixed spans, K steps fused per
-    dispatch) lives in diff/benchgrad.py.
+    albedos, env texels) through jax.grad of the integrator (the
+    adjoint of the bounce loop, demofox_path_tracing_optimization_v4.cpp
+    :722-910); --remat replays each bounce segment in the backward
+    sweep instead of storing its state. The measurement protocol (warmup
+    + mean over fixed spans, K steps fused per dispatch) lives in
+    diff/benchgrad.py.
     """
     import json
 
     from cpuperformanceraytracer_tpu.diff.benchgrad import fwd_bwd_benchmark
     from cpuperformanceraytracer_tpu.scene.presets import scene_by_name
 
-    cfg = _cfg_from_args(a).replace(rng="counter")
-    if cfg.backend == "xla":
-        cfg = cfg.replace(remat_bounces=True)
-        # the remat path runs ~10 s/step at 720p (BASELINE.md): keep
-        # the default protocol small unless the caller sized it
-        if a.steps is None:
-            a.steps = 4
-        if a.steps_per_dispatch is None:
-            a.steps_per_dispatch = 1
-    else:
-        # the round-3 sweep's tuned forward blocks + one early-exit check
-        kw = dict(exit_granularity=8)
-        if cfg.height % 16 == 0:
-            kw["tile_height"] = 16
-        if cfg.width % 128 == 0:
-            kw["tile_width"] = 128
-        cfg = cfg.replace(**kw)
+    cfg = _cfg_from_args(a).replace(rng="counter", remat_bounces=a.remat)
     scene, cam = scene_by_name(cfg.scene)
-    tex = _texture_from_args(a)
-
-    steps = 64 if a.steps is None else a.steps
-    k = 16 if a.steps_per_dispatch is None else a.steps_per_dispatch
-    result = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=steps,
-                               steps_per_dispatch=k)
+    result = fwd_bwd_benchmark(cfg, scene, cam, _texture_from_args(a),
+                               steps=a.steps,
+                               steps_per_dispatch=a.steps_per_dispatch)
     out = {
         "metric": "fwd_bwd_ms_per_step",
         "config": f"{cfg.width}x{cfg.height} spp{cfg.spp} "
-                  f"b{cfg.bounces} env={cfg.env_mode} {cfg.backend}",
+                  f"b{cfg.bounces} env={cfg.env_mode} "
+                  f"remat={cfg.remat_bounces}",
     }
     out.update({k: (round(v, 3) if isinstance(v, float) else v)
                 for k, v in result.items()})
@@ -333,7 +308,7 @@ def cmd_inverse(a) -> int:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="cprt-tpu")
+    ap = argparse.ArgumentParser(prog="cprt")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("render", help="offline progressive render")
@@ -350,6 +325,8 @@ def main(argv=None) -> int:
     p = sub.add_parser("bench", help="run named benchmark configs")
     p.add_argument("configs", nargs="*", default=None)
     p.add_argument("--frames", type=int, default=30)
+    p.add_argument("--backend", default=None, choices=["xla", "pallas"],
+                   help="override the configs' backend")
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("inverse", help="inverse-rendering demo")
@@ -365,12 +342,12 @@ def main(argv=None) -> int:
     p = sub.add_parser("bench-grad",
                        help="timed fwd+bwd (value_and_grad) throughput")
     _add_common(p)
-    p.add_argument("--steps", type=int, default=None,
-                   help="timed steps (default 64 pallas / 4 xla-remat)")
-    p.add_argument("--steps-per-dispatch", type=int, default=None,
+    p.add_argument("--steps", type=int, default=16, help="timed steps")
+    p.add_argument("--steps-per-dispatch", type=int, default=4,
                    help="K value_and_grad steps fused per device "
-                        "dispatch (default 16 pallas / 1 xla-remat; "
-                        "diff/benchgrad.make_grad_step_k)")
+                        "dispatch (diff/benchgrad.make_grad_step_k)")
+    p.add_argument("--remat", action="store_true",
+                   help="replay bounce segments in the backward sweep")
     p.set_defaults(fn=cmd_bench_grad)
 
     a = ap.parse_args(argv)
@@ -385,4 +362,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from cpuperformanceraytracer_tpu.utils.compile_cache import (
+        setup_compile_cache,
+    )
+
+    setup_compile_cache()
     sys.exit(main())

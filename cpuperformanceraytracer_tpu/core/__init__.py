@@ -1,11 +1,11 @@
 """Core math layer: vector types, RNG, color transforms, samplers.
 
-TPU-native replacement for the reference's SIMD math core
+The replacement for the reference's SIMD math core
 (mathlib.h / mathutils.h / intrinsic_utils.h): instead of 8-wide
 ``__m256`` packets, code is written per-ray over a ``Vec3`` of scalars
 and vectorized with ``jax.vmap`` — XLA then lays every component out as
-a full SoA array over pixels, the (8,128)-register analog of the
-reference's hand-packed ``m256x3``.
+a full SoA array over pixels, the analog of the reference's
+hand-packed ``m256x3``.
 """
 
 from cpuperformanceraytracer_tpu.core.vecmath import (  # noqa: F401

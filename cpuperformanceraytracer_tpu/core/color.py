@@ -4,7 +4,7 @@ Capability mirror of the reference's postprocess stage
 (demofox_path_tracing_optimization_v4.cpp:144-193 and the
 OutputToScreen/OutputToFile encode at :1260-1331), using exact math:
 the reference's ``fast_pow_gamma`` (sqrt + Newton cube-root) and
-``rcp``-based ACES are x86 throughput tricks; on TPU, XLA fuses the
+``rcp``-based ACES are x86 throughput tricks; XLA fuses the
 exact ops into the same elementwise pipeline, so the oracle and kernels
 share one exact definition (numerical-parity policy, SURVEY.md
 section 7(e)).

@@ -7,7 +7,7 @@ per-lane wang-hash stream (mathutils.h:8-31): a mutable u32 state hashed
 in place per draw. Here the state is threaded functionally (draw returns
 (value, new_state)); under ``vmap`` each pixel carries one independent
 u32 stream, exactly like one AVX lane. This is the parity RNG: the
-JAX-CPU oracle and the TPU kernels consume identical draw sequences, so
+JAX-CPU oracle and the Pallas kernel consume identical draw sequences, so
 images match to float tolerance.
 
 ``CounterRng`` — a counter-based threefry2x32 generator keyed by
@@ -56,8 +56,8 @@ def rand01(state: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """
     state = wang_hash(state)
     # route the cast through int32: the mask clears the sign bit so the
-    # reinterpretation is value-preserving, and i32->f32 is supported
-    # everywhere (Mosaic has no u32->f32 cast)
+    # reinterpretation is value-preserving, and i32->f32 is the cast
+    # every backend has
     value = (state & _u32(0x7FFFFFFF)).astype(jnp.int32).astype(
         jnp.float32
     ) * jnp.float32(1.0 / 2147483648.0)

@@ -20,6 +20,7 @@ Both take and return a functional rng (anything with ``next01``).
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from cpuperformanceraytracer_tpu.core.vecmath import Vec3
 
@@ -41,7 +42,8 @@ def random_unit_vector_normalized3(rng):
 
     Matches the default fast path: u,v,w ~ U[-1,1), result =
     (u,v,w)/|(u,v,w)| (demofox_path_tracing_optimization_v4.cpp:109-129).
-    Exact rsqrt is used (the reference's ``rsroot`` is an x86 approx).
+    ``lax.rsqrt`` is used (the reference's ``rsroot`` is an x86
+    approximation; rsqrt is what XLA makes of 1/sqrt on every backend).
     """
     u, rng = rng.next01()
     v, rng = rng.next01()
@@ -50,9 +52,5 @@ def random_unit_vector_normalized3(rng):
     v = 2.0 * v - 1.0
     w = 2.0 * w - 1.0
     d2 = u * u + v * v + w * w
-    inv = jax_rsqrt(jnp.maximum(d2, 1e-20))
+    inv = lax.rsqrt(jnp.maximum(d2, 1e-20))
     return Vec3(u * inv, v * inv, w * inv), rng
-
-
-def jax_rsqrt(x):
-    return 1.0 / jnp.sqrt(x)

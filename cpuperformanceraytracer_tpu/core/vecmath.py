@@ -2,8 +2,8 @@
 
 Design: a ``Vec3`` is a NamedTuple of three scalars. Integrator code is
 written against single rays; ``jax.vmap`` over pixels turns every
-component into one flat SoA array — the idiomatic TPU layout (contiguous
-(8,128) vector registers per component), structurally equivalent to the
+component into one flat SoA array (contiguous per component),
+structurally equivalent to the
 reference's ``m256x3`` struct-of-``__m256`` design (mathlib.h:85-90)
 without any hand-packing.
 
@@ -131,8 +131,7 @@ def normalize(v: Vec3) -> Vec3:
 
     The reference deliberately uses full-precision divide rather than
     rsqrt for normals (mathlib.h:747-752: "rsroot ... is not accurate
-    enough to avoid artifacts"); we match that policy, and XLA emits the
-    right thing on TPU anyway.
+    enough to avoid artifacts"); we match that policy.
     """
     return v * (1.0 / jnp.sqrt(dot3(v, v)))
 

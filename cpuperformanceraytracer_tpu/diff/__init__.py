@@ -18,6 +18,3 @@ from cpuperformanceraytracer_tpu.diff.inverse import (  # noqa: F401
     InverseProblem,
     adam_inverse_render,
 )
-from cpuperformanceraytracer_tpu.diff.segsum import (  # noqa: F401
-    segment_sum_sorted,
-)

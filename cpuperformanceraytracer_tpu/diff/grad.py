@@ -71,15 +71,11 @@ def apply_params(scene: Scene, texture: Optional[Texture], params: Dict):
 
 def render_for_params(params: Dict, scene: Scene, camera, texture,
                       cfg: RenderConfig, frame=0) -> Vec3:
+    """Differentiable render: always the XLA integrator (cfg.backend
+    picks only the forward renderer). Its adjoint is plain jax.grad;
+    the env-texel gradient is the transpose of the env gather, a
+    scatter-add."""
     scene, texture = apply_params(scene, texture, params)
-    if cfg.backend == "pallas":
-        # production gradients: forward megakernel + the adjoint
-        # megakernel (kernels/backward.py) instead of XLA remat replay
-        from cpuperformanceraytracer_tpu.kernels.backward import (
-            render_frame_pallas_diff,
-        )
-
-        return render_frame_pallas_diff(scene, camera, texture, cfg, frame)
     return render_frame(scene, camera, texture, cfg, frame)
 
 

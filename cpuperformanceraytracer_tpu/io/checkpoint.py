@@ -23,9 +23,9 @@ _FORMAT_VERSION = 1
 # Config fields that determine the accumulated image. Resuming under a
 # config that differs in ANY of these would silently average two
 # different renders together; resume_or_fresh starts fresh instead.
-# Excluded on purpose: backend/tile/bake/early_exit/accum_layout/
-# frames_per_dispatch (parity-tested execution strategy, not image
-# content), num_frames/warmup_frames (loop length), exposure (applied at
+# Excluded on purpose: backend/tile/bake/early_exit/frames_per_dispatch
+# (parity-tested execution strategy, not image content),
+# num_frames/warmup_frames (loop length), exposure (applied at
 # postprocess time, not baked into the accumulation).
 _IMAGE_FIELDS = (
     "width", "height", "spp", "bounces", "scene", "env_mode",
@@ -43,13 +43,8 @@ def image_fingerprint(cfg: RenderConfig) -> tuple:
     )
 
 
-def save_checkpoint(path: str, accum, frame: int, cfg: RenderConfig) -> None:
-    """``accum``: either layout (Vec3 planes or packed (H, W, 4)); the
-    on-disk format is always channel planes, so checkpoints stay
-    interchangeable across accum_layout settings."""
-    from cpuperformanceraytracer_tpu.render.frame import accum_to_vec3
-
-    v = accum_to_vec3(accum, cfg)
+def save_checkpoint(path: str, v: Vec3, frame: int, cfg: RenderConfig) -> None:
+    """Write the accumulation planes, frame index and config."""
     np.savez_compressed(
         path,
         version=_FORMAT_VERSION,
@@ -76,28 +71,13 @@ def resume_or_fresh(path: Optional[str], cfg: RenderConfig):
     Compatible = the saved config's image fingerprint (every field that
     shapes the accumulated image — resolution, spp, scene, rng, env,
     roulette, ...) matches ``cfg``'s; a mismatch in any of them starts
-    fresh rather than corrupting the running mean. The returned buffer is
-    in ``cfg``'s accumulation layout (config.accum_layout), whatever
-    layout wrote the checkpoint."""
+    fresh rather than corrupting the running mean."""
     import jax.numpy as jnp
 
     if path:
         try:
             accum, frame, saved_cfg = load_checkpoint(path)
             if image_fingerprint(saved_cfg) == image_fingerprint(cfg):
-                if cfg.packed_accum:
-                    packed = np.stack(
-                        [accum.x, accum.y, accum.z,
-                         np.zeros_like(accum.x)], axis=-1)
-                    return jnp.asarray(packed), frame
-                if cfg.flat_accum:
-                    shape = (cfg.height * cfg.width // 128, 128)
-                    return (
-                        Vec3(jnp.asarray(accum.x).reshape(shape),
-                             jnp.asarray(accum.y).reshape(shape),
-                             jnp.asarray(accum.z).reshape(shape)),
-                        frame,
-                    )
                 return (
                     Vec3(jnp.asarray(accum.x), jnp.asarray(accum.y),
                          jnp.asarray(accum.z)),

@@ -1,15 +1,12 @@
-"""Fused Pallas TPU kernels.
+"""Fused Pallas kernels, compiled for the GPU through Triton.
 
-The megakernel is the TPU-native analog of the reference's RenderTile →
+The path-tracing kernel is the analog of the reference's RenderTile →
 mainImage → GetColorForRay hot path (SURVEY.md section 3.1): one fused
-kernel per pixel block keeps the ~20 live per-ray vec3 carries in
-VMEM/vector registers for the whole bounce loop instead of spilling
-(P,)-sized state to HBM between XLA loop iterations.
+program per pixel block keeps the ~25 live per-ray values in registers
+for the whole bounce loop instead of writing (P,)-sized state to device
+memory between XLA loop iterations.
 """
 
 from cpuperformanceraytracer_tpu.kernels.megakernel import (  # noqa: F401
     render_frame_pallas,
-)
-from cpuperformanceraytracer_tpu.kernels.tonemap import (  # noqa: F401
-    postprocess_pallas,
 )

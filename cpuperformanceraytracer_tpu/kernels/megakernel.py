@@ -1,43 +1,63 @@
-"""Fused Pallas path-tracing megakernel.
+"""Fused Pallas path-tracing kernel, compiled through Triton.
 
-One grid step = one (BH, BW) pixel block. The whole per-sample pipeline —
-wang-hash RNG, camera ray, the full bounce loop with blend-chain
+One program = one (BH, BW) pixel block. The whole per-sample pipeline —
+wang-hash or counter RNG, camera ray, the bounce loop with blend-chain
 intersection over every quad/sphere, Fresnel material lottery, Beer
-absorption, Russian roulette — runs on (BH, BW) f32 tiles that live in
-VMEM/vector registers; nothing per-ray ever round-trips to HBM. This is
-the TPU re-derivation of the reference's 8-wide SIMD megaloop
-(GetColorForRay, demofox_path_tracing_optimization_v4.cpp:722-910) with
-the (8,128) vector register file as the "packet".
+absorption, Russian roulette — runs on (BH, BW) f32 blocks held in
+registers; the ~25 carried values per pixel never round-trip to device
+memory between bounce segments. This is the re-derivation of the
+reference's 8-wide SIMD megaloop (GetColorForRay,
+demofox_path_tracing_optimization_v4.cpp:722-910) with a pixel block
+as the "packet".
 
-Scene data rides in SMEM ((N,K) f32 tables, scalar-read per object and
-broadcast), mirroring how the reference keeps the scene in L1-resident
-SoA (Scene :364-377). Per-object loops are python-unrolled blend chains
-exactly like TestSceneTrace (:699-718).
+The bounce segments run in a rolled ``lax.while_loop`` that stops once
+no pixel of the block is alive — the block-level analog of the
+reference's all_set(shouldBreak) early-out (v4 :731,781). Per-object
+loops are python-unrolled blend chains like TestSceneTrace (:699-718).
+
+Scene data: a concrete scene is baked into the kernel as compile-time
+constants (the reference's static InitializeScene data, v4
+:1403-1496), which lets the material fetch collapse to distinct-value
+selects and drops shading paths the scene cannot exercise. A traced
+scene is read as scalars from small (N, K) f32 tables in device memory.
 
 Environment radiance is DEFERRED: each path needs at most one env-map
-texel (first miss kills the path), so the kernel emits
-(missed, miss_dir, miss_throughput, jitter) planes and the env gather +
-final add happens outside in XLA — one gather per pixel per sample
-instead of one per bounce. RNG draw order matches the oracle exactly
+texel (its first miss kills it), so the kernel emits (miss_dir,
+miss_throughput, jitter) planes and the env gather + final add run
+outside in XLA. RNG draw order matches the oracle exactly
 (render/integrator.py draw-order contract).
 
-Constraint: the wang RNG stream is sequential per (pixel, frame) across
-the spp loop, which the kernel reproduces; the counter RNG is also
-supported. Parity: allclose vs the oracle integrator (tests/test_pallas.py).
+Interpret mode: ``lax.platform_dependent`` picks the Pallas interpreter
+only where the computation is lowered for the CPU platform (the tests);
+lowered for CUDA, the kernel compiles through Triton or the program
+fails.
+
+Numerics: kernel and oracle are written with the same ops and are kept
+to Triton's and XLA's own lowering of them: ``sqrt``/``exp`` are
+libdevice calls in both, and normalization uses ``rsqrt`` — what XLA's
+algebraic simplifier makes of ``1/sqrt`` anyway (render/integrator.py
+``_safe_normalize``). Forcing IEEE ``div.rn.f32`` in the kernel was
+measured to agree worse with XLA than Triton's own division; with the
+ops as they are, kernel and un-jitted oracle agree bit for bit on an
+H100 at 1280x720 (PERF.md).
 """
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple
+import numpy as np
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from cpuperformanceraytracer_tpu.config import RenderConfig
-from cpuperformanceraytracer_tpu.core.rng import CounterRng, WangRng
+from cpuperformanceraytracer_tpu.core.rng import counter_rand01, rand01
+from cpuperformanceraytracer_tpu.core.sampling import (
+    random_unit_vector_normalized3,
+    random_unit_vector_zangle,
+)
 from cpuperformanceraytracer_tpu.core.vecmath import (
     Vec3,
     dot3,
@@ -51,19 +71,18 @@ from cpuperformanceraytracer_tpu.render.integrator import (
     RAY_POS_NORMAL_NUDGE,
     SUPER_FAR,
 )
-from cpuperformanceraytracer_tpu.core.sampling import (
-    random_unit_vector_normalized3,
-    random_unit_vector_zangle,
-)
 from cpuperformanceraytracer_tpu.scene.types import Scene, precompute_quads
 from cpuperformanceraytracer_tpu.texture.texture import sample_environment_deferred
 
+# Pixels each thread holds: num_warps = block pixels / (32 * this). Each
+# pixel carries ~25 f32 values plus temporaries; one pixel per thread was
+# fastest on an H100 (2 within noise, 4 slower by ~30%; PERF.md).
+PIXELS_PER_THREAD = 1
+
 
 def _safe_normalize(v: Vec3) -> Vec3:
-    # exact 1/sqrt, bit-matching the oracle's _safe_normalize (parity
-    # policy: no fast-math divergence between kernel and oracle)
-    d2 = jnp.maximum(dot3(v, v), 1e-20)
-    return v * (1.0 / jnp.sqrt(d2))
+    # the oracle's _safe_normalize, op for op
+    return v * lax.rsqrt(jnp.maximum(dot3(v, v), 1e-20))
 
 
 def _w3(cond, new: Vec3, old: Vec3) -> Vec3:
@@ -88,7 +107,7 @@ def _wh(cond, a, b):
 
 
 # ----------------------------------------------------------------------------
-# Scene packing: pytrees -> flat f32 tables for SMEM
+# Scene packing: pytrees -> flat f32 tables
 # ----------------------------------------------------------------------------
 
 QUAD_COLS = 25  # v0(3) n(3) nxv01/12/20/02/23/30 (18) mat(1)
@@ -137,73 +156,33 @@ def pack_camera(camera, cfg) -> "jnp.ndarray":
     ])
 
 
-class _SmemRng:
-    """WangRng-compatible draw API over a (BH, BW) u32 state tile."""
+class _BlockWangRng:
+    """WangRng-compatible draw API over a (BH, BW) u32 state block."""
 
     def __init__(self, state):
         self.state = state
 
     def next01(self):
-        from cpuperformanceraytracer_tpu.core.rng import rand01
-
         v, s = rand01(self.state)
-        return v, _SmemRng(s)
+        return v, _BlockWangRng(s)
+
+    def carry(self):
+        return self.state
 
 
-class _CtrRng:
-    """CounterRng-compatible draw API over (BH, BW) key tiles."""
+class _BlockCtrRng:
+    """CounterRng-compatible draw API over (BH, BW) key blocks. Only the
+    draw counter is loop-carried; the keys are invariant."""
 
     def __init__(self, key0, key1, ctr):
         self.key0, self.key1, self.ctr = key0, key1, ctr
 
     def next01(self):
-        from cpuperformanceraytracer_tpu.core.rng import counter_rand01
-
         v = counter_rand01(self.key0, self.key1, self.ctr, 0)
-        return v, _CtrRng(self.key0, self.key1, self.ctr + 1)
+        return v, _BlockCtrRng(self.key0, self.key1, self.ctr + 1)
 
-
-def rng_flatten(rng):
-    """RNG object -> tuple of arrays (loop-carry friendly)."""
-    if isinstance(rng, _SmemRng):
-        return (rng.state,)
-    return (rng.key0, rng.key1, rng.ctr)
-
-
-def rng_unflatten(leaves):
-    if len(leaves) == 1:
-        return _SmemRng(leaves[0])
-    return _CtrRng(*leaves)
-
-
-def _scalar3(ref, row, col0) -> Vec3:
-    return Vec3(ref[row, col0], ref[row, col0 + 1], ref[row, col0 + 2])
-
-
-# Scratch layout for the early-exit bounce loop: 22 f32 planes of carried
-# state (masks stored as 0/1 f32 — VMEM scratch is typed) + the RNG's u32
-# planes (1 for wang, 3 for counter).
-_ALIVE_SLOT = 12
-_N_F32_SLOTS = 22
-
-
-def _flatten_state(s):
-    (ret, thr, pos, dir, alive, miss_dir, miss_thr, miss_jr, miss_jc,
-     missed, rng_state) = s
-    f = [ret.x, ret.y, ret.z, thr.x, thr.y, thr.z, pos.x, pos.y, pos.z,
-         dir.x, dir.y, dir.z, alive.astype(jnp.float32),
-         miss_dir.x, miss_dir.y, miss_dir.z,
-         miss_thr.x, miss_thr.y, miss_thr.z, miss_jr, miss_jc,
-         missed.astype(jnp.float32)]
-    return f + list(rng_state)
-
-
-def _unflatten_state(flat):
-    (rx, ry, rz, tx, ty, tz, px, py, pz, dx, dy, dz, alive,
-     mdx, mdy, mdz, mtx, mty, mtz, mjr, mjc, missed, *rng) = flat
-    return (Vec3(rx, ry, rz), Vec3(tx, ty, tz), Vec3(px, py, pz),
-            Vec3(dx, dy, dz), alive > 0.5, Vec3(mdx, mdy, mdz),
-            Vec3(mtx, mty, mtz), mjr, mjc, missed > 0.5, tuple(rng))
+    def carry(self):
+        return self.ctr
 
 
 def _const(x):
@@ -216,120 +195,61 @@ def _is_const(x, value=None):
     return c is not None and (value is None or c == value)
 
 
-def _magic_div(d: int, n: int):
-    """(k, m, s) with ((g >> k) * m) >> s == g // d for every
-    0 <= g < n, exhaustively verified ((g >> k) * m stays below 2^31 so
-    i32 vector math is exact). Factoring d's power of two into the
-    pre-shift k buys the precision headroom that divisors like 30 need
-    at 4K group counts."""
-    import numpy as np
-
-    g = np.arange(n, dtype=np.int64)
-    want = g // d
-    k = (d & -d).bit_length() - 1  # trailing zeros of d
-    d2 = d >> k
-    gk = g >> k
-    for s in range(1, 31):
-        m = (1 << s) // d2 + 1
-        if (gk[-1]) * m >= (1 << 31):
-            continue
-        if np.all((gk * m) >> s == want):
-            return k, m, s
-    raise ValueError(f"no exact magic divisor for d={d}, n={n}")
-
-
-# param-key granularity for PARTIAL baking (the diff path): material
-# table column -> the apply_params key that trains it (diff/grad.py)
-MAT_FIELD_KEYS = (
-    ["albedo"] * 3 + ["emissive"] * 3
-    + ["specular_chance", "specular_roughness"] + ["specular_color"] * 3
-    + ["ior", "refraction_chance", "refraction_roughness"]
-    + ["refraction_color"] * 3
-)
+# ----------------------------------------------------------------------------
+# Kernel body
+# ----------------------------------------------------------------------------
 
 
 def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
-                 bh: int, bw: int, baked=None, flat_gpr=None,
-                 export_parts=False, trained=None):
+                 bh: int, bw: int, baked=None):
     """Build the kernel body for static (cfg, scene sizes, block shape).
 
     ``baked``: optional (quad_np, sph_np, mat_np, cam_np) numpy tables —
-    the scene as compile-time constants (the TPU analog of the
-    reference's static InitializeScene data, v4 :1403-1496). Baking lets
-    the material fetch collapse to distinct-value select chains and lets
-    shading paths that the scene cannot exercise (refraction, Fresnel,
-    Beer absorption, roughness lerps) drop out of the kernel entirely.
-
-    ``trained``: optional frozenset of apply_params keys ("albedo",
-    "sphere_centers", "quad", "camera", ...) enabling PARTIAL baking for
-    the differentiable path: cells belonging to a trained family read
-    from the SMEM tables (traced, gradients flow); every other cell is a
-    compile-time constant from ``baked`` (which must then be provided).
-    None = the all-or-nothing behavior (fully baked when ``baked`` is
-    given, fully traced otherwise).
+    the scene as compile-time constants. None = every table cell is read
+    from the (traced) table inputs.
 
     The scalar input carries [frame, row0, sample0]: row0 = this
     shard's first global pixel row; sample0 = the first counter-RNG
     sample index of this invocation's spp loop (streams are addressable
-    per (pixel, frame, sample), so high-spp frames split into
-    per-sample dispatches and spp shards offset their sample window).
+    per (pixel, frame, sample), so env frames split into per-sample
+    dispatches and spp shards offset their sample window).
     """
     height, width = cfg.height, cfg.width
-    part = trained if trained is not None else frozenset()
-    if trained is not None and baked is None:
-        raise ValueError("partial baking (trained=...) needs baked tables")
-
-    def _is_trained(key: str) -> bool:
-        # with no baked tables everything is traced; with baked tables
-        # and no trained set everything is constant (full bake)
-        return baked is None or key in part
-    env_draws = cfg.env_mode != "none" and cfg.env_sampling == "stochastic"
+    env_out = cfg.env_mode != "none"
+    env_draws = env_out and cfg.env_sampling == "stochastic"
     unit_vec = (random_unit_vector_zangle
                 if cfg.unit_vector_sampler == "zangle"
                 else random_unit_vector_normalized3)
 
+    def cell(ref, table, row, col):
+        return ref[row, col] if baked is None else float(baked[table][row, col])
+
+    def vec(ref, table, row, col0):
+        return Vec3(*(cell(ref, table, row, col0 + i) for i in range(3)))
+
     def load_quads(quad_ref):
-        """Hoist every per-quad SMEM scalar out of the bounce loop: one
-        read each per kernel invocation instead of one per bounce. The
-        quad family bakes/traces as a unit ("quad"): the table stores
-        vertex-DERIVED cells (normal, edge cross products), so any
-        trained vertex taints them all."""
-        if not _is_trained("quad"):
-            q = baked[0]
-            return [tuple(
-                Vec3(*(float(v) for v in q[qi, c:c + 3]))
-                for c in (0, 3, 6, 12, 15, 21)
-            ) + (float(q[qi, 24]),) for qi in range(nq)]
-        out = []
-        for qi in range(nq):
-            out.append((
-                _scalar3(quad_ref, qi, 0),    # v0
-                _scalar3(quad_ref, qi, 3),    # n
-                _scalar3(quad_ref, qi, 6),    # nxv01
-                _scalar3(quad_ref, qi, 12),   # nxv20
-                _scalar3(quad_ref, qi, 15),   # nxv02
-                _scalar3(quad_ref, qi, 21),   # nxv30
-                quad_ref[qi, 24],             # material index (f32)
-            ))
-        return out
+        """Every per-quad scalar, read once per program (not per bounce)."""
+        return [(
+            vec(quad_ref, 0, qi, 0),    # v0
+            vec(quad_ref, 0, qi, 3),    # n
+            vec(quad_ref, 0, qi, 6),    # nxv01
+            vec(quad_ref, 0, qi, 12),   # nxv20
+            vec(quad_ref, 0, qi, 15),   # nxv02
+            vec(quad_ref, 0, qi, 21),   # nxv30
+            cell(quad_ref, 0, qi, 24),  # material index (f32)
+        ) for qi in range(nq)]
 
     def load_spheres(sph_ref):
-        ctr = _is_trained("sphere_centers")
-        rad = _is_trained("sphere_radii")
-        s = baked[1] if baked is not None else None
-        return [(
-            _scalar3(sph_ref, si, 0) if ctr
-            else Vec3(*(float(v) for v in s[si, 0:3])),
-            sph_ref[si, 3] if rad else float(s[si, 3]),
-            # material index is structural, never trained
-            sph_ref[si, 4] if baked is None else float(s[si, 4]),
-        ) for si in range(ns)]
+        return [(vec(sph_ref, 1, si, 0), cell(sph_ref, 1, si, 3),
+                 cell(sph_ref, 1, si, 4)) for si in range(ns)]
 
     def load_materials(mat_ref):
-        m = baked[2] if baked is not None else None
-        return [[mat_ref[mi, k] if _is_trained(MAT_FIELD_KEYS[k])
-                 else float(m[mi, k]) for k in range(MAT_COLS)]
+        return [[cell(mat_ref, 2, mi, k) for k in range(MAT_COLS)]
                 for mi in range(nm)]
+
+    def load_camera(cam_ref):
+        return [cam_ref[i] if baked is None else float(baked[3][i])
+                for i in range(8)]
 
     def trace(quads, spheres, pos: Vec3, dir: Vec3):
         """Blend-chain nearest hit over all objects (TestSceneTrace
@@ -370,23 +290,14 @@ def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
             cc = dot3(m_, m_) - r * r
             discr = b * b - cc
             miss = ((cc > 0.0) & (b > 0.0)) | (discr < 0.0)
-            # double-where sqrt guard (same as the oracle's _test_spheres):
-            # sqrt'(0) = inf would leak NaN into the backward kernel's
-            # adjoint through miss lanes; forward values are identical
+            # double-where sqrt guard, as the oracle's _test_spheres
             discr_safe = jnp.where(discr > 0.0, discr, 1.0)
             sq = jnp.where(discr > 0.0, jnp.sqrt(discr_safe), 0.0)
             from_in = -b < sq
             dist = jnp.where(from_in, sq, -sq) - b
             valid = (~miss) & (dist > MIN_RAY_HIT_TIME) & (dist < best)
             hit_rel = m_ + dir * dist
-            sgn = jnp.where(from_in, -1.0, 1.0)
-            if _const(r) is not None:
-                # on-sphere point: |hit_rel| == radius exactly, so the
-                # rsqrt-normalize collapses to one scale (error ~1 ulp vs
-                # the oracle's normalize; strict-parity tests tolerate it)
-                sn = hit_rel * (sgn * (1.0 / _const(r)))
-            else:
-                sn = _safe_normalize(hit_rel) * sgn
+            sn = _safe_normalize(hit_rel) * jnp.where(from_in, -1.0, 1.0)
             best = jnp.where(valid, dist, best)
             normal = _w3(valid, sn, normal)
             inside = (valid & from_in) | (~valid & inside)
@@ -396,12 +307,11 @@ def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
 
     def fetch_material(materials, idx):
         """17-field material fetch (GatherMaterials analog, v4 :389-417),
-        per-field:
+        per field:
 
-        Constant field (every material's value is a python float — the
-        whole scene baked, or the field not trained under PARTIAL
-        baking): DISTINCT-VALUE grouping — (#distinct values - 1)
-        selects against precomputed union masks, and a scene-wide-
+        Constant field (every material's value is a python float — a
+        baked scene): DISTINCT-VALUE grouping — (#distinct values - 1)
+        selects against precomputed union masks, and a scene-wide
         constant field becomes a python float (letting downstream
         shading code drop out at trace time).
 
@@ -429,7 +339,6 @@ def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
         for k in range(MAT_COLS):
             vals = [materials[mi][k] for mi in range(nm)]
             if not all(isinstance(v, (int, float)) for v in vals):
-                # traced field: plain select chain in material order
                 field = jnp.zeros((bh, bw), jnp.float32)
                 for mi in range(nm):
                     field = jnp.where(eq_mask(mi), vals[mi], field)
@@ -450,53 +359,44 @@ def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
             fields.append(field)
         return fields
 
-    def cam_scalar(cam_ref, i):
-        # cols 0..4 = camera (trainable as the "camera" family); cols
-        # 5..7 = cfg.ambient (configuration, never trained)
-        if baked is not None and not (i < 5 and _is_trained("camera")):
-            return float(baked[3][i])
-        return cam_ref[i]
+    def make_camera_ray(cam):
+        def camera_ray_blk(rng_carry, rng_keys, frag_x, frag_y):
+            """Primary ray for the block (mainImage analog): jitter
+            draws + NDC target + normalize. Once per frame in wang mode
+            (the reference draws jitter ONCE and shares the ray across
+            the spp loop, v4 :1109-1129); per sample in counter mode."""
+            rng = make_rng(rng_keys, rng_carry)
+            if cfg.jitter:
+                jx, rng = rng.next01()
+                jy, rng = rng.next01()
+                fx = frag_x + (jx - 0.5)
+                fy = frag_y + (jy - 0.5)
+            else:
+                fx, fy = frag_x, frag_y
+            u = (fx / width) * 2.0 - 1.0
+            v = (fy / height) * 2.0 - 1.0
+            v = v * (height / width)
+            cam_pos = Vec3(*(jnp.full((bh, bw), cam[i]) for i in range(3)))
+            target = Vec3(u, v, jnp.full((bh, bw), cam[4] * cam[3]))
+            return cam_pos, _safe_normalize(target), rng.carry()
 
-    def camera_ray_blk(cam_ref, rng, frag_x, frag_y):
-        """Primary ray for the block (mainImage analog): jitter draws +
-        NDC target + normalize. One call per frame in wang mode (the
-        reference draws jitter ONCE and shares the ray across the spp
-        loop, v4 :1109-1129); per sample in counter mode."""
-        if cfg.jitter:
-            jx, rng = rng.next01()
-            jy, rng = rng.next01()
-            fx = frag_x + (jx - 0.5)
-            fy = frag_y + (jy - 0.5)
-        else:
-            fx, fy = frag_x, frag_y
-        u = (fx / width) * 2.0 - 1.0
-        v = (fy / height) * 2.0 - 1.0
-        v = v * (height / width)
-        # pos planes stay materialized (bh, bw) arrays even when baked:
-        # they are loop-carried through VMEM scratch refs
-        cam_pos = Vec3(
-            jnp.full((bh, bw), cam_scalar(cam_ref, 0)),
-            jnp.full((bh, bw), cam_scalar(cam_ref, 1)),
-            jnp.full((bh, bw), cam_scalar(cam_ref, 2)),
-        )
-        target = Vec3(u, v, jnp.full(
-            (bh, bw), cam_scalar(cam_ref, 4) * cam_scalar(cam_ref, 3)))
-        return cam_pos, _safe_normalize(target), rng
+        return camera_ray_blk
 
-    def make_bounce_body(quads, spheres, materials, cam_ref):
-        """Build the per-segment bounce body over EXPLICIT scene values
-        (lists of traced scalars/planes or baked python floats). Shared
-        verbatim by the forward kernel and the backward kernel's
-        replay+adjoint sweeps (kernels/backward.py), so the two can never
-        drift. Estimator weights (lottery inverse-probability, roulette
-        boost) are DETACHED exactly like the oracle integrator
-        (render/integrator.py), which is what makes jax.vjp of this body
-        the correct gradient policy."""
+    def make_rng(keys, carry):
+        if cfg.rng == "wang":
+            return _BlockWangRng(carry)
+        return _BlockCtrRng(keys[0], keys[1], carry)
 
-        def bounce_body(state):
+    def make_bounce_body(quads, spheres, materials, cam):
+        """The per-segment bounce body over explicit scene values (lists
+        of traced scalars or baked python floats). Estimator weights
+        (lottery inverse-probability, roulette boost) are detached
+        exactly like the oracle integrator (render/integrator.py)."""
+
+        def bounce_body(state, rng_keys):
             (ret, thr, pos, dir, alive, miss_dir, miss_thr, miss_jr,
-             miss_jc, missed, rng_state) = state
-            rng = rng_unflatten(rng_state)
+             miss_jc, missed, rng_carry) = state
+            rng = make_rng(rng_keys, rng_carry)
             dist, normal, from_inside, mat_idx = trace(quads, spheres,
                                                        pos, dir)
             if env_draws:
@@ -509,13 +409,13 @@ def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
             first_miss = alive & miss
             update = alive & ~miss
 
-            if cfg.env_mode == "none":
+            if not env_out:
                 # constant ambient needs no gather: add inline (correct
-                # for any spp); cam_ref[5:8] carries the ambient color
+                # for any spp); cam[5:8] carries the ambient color
                 ret = Vec3(
-                    jnp.where(first_miss, ret.x + cam_scalar(cam_ref, 5) * thr.x, ret.x),
-                    jnp.where(first_miss, ret.y + cam_scalar(cam_ref, 6) * thr.y, ret.y),
-                    jnp.where(first_miss, ret.z + cam_scalar(cam_ref, 7) * thr.z, ret.z),
+                    jnp.where(first_miss, ret.x + cam[5] * thr.x, ret.x),
+                    jnp.where(first_miss, ret.y + cam[6] * thr.y, ret.y),
+                    jnp.where(first_miss, ret.z + cam[7] * thr.z, ret.z),
                 )
             miss_dir = _w3(first_miss, dir, miss_dir)
             miss_thr = _w3(first_miss, thr, miss_thr)
@@ -588,11 +488,7 @@ def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
             ray_prob = _wh(do_spec, spec_chance,
                            _wh(do_refr, refr_chance, diff_chance))
             if _const(ray_prob) is None:
-                # estimator weight, not physics: detach like the oracle
-                # (integrator.py ray_prob stop_gradient)
-                ray_prob = jax.lax.stop_gradient(
-                    jnp.maximum(ray_prob, MIN_RAY_PROBABILITY))
-                inv_prob = 1.0 / ray_prob
+                inv_prob = 1.0 / jnp.maximum(ray_prob, MIN_RAY_PROBABILITY)
             else:
                 inv_prob = 1.0 / max(_const(ray_prob), MIN_RAY_PROBABILITY)
 
@@ -647,9 +543,7 @@ def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
                     0.0, 1.0)
                 rr, rng = rng.next01()
                 terminated = rr > p
-                # detached roulette boost (integrator.py policy)
-                boost = 1.0 / jax.lax.stop_gradient(
-                    jnp.maximum(p, MIN_RAY_PROBABILITY))
+                boost = 1.0 / jnp.maximum(p, MIN_RAY_PROBABILITY)
                 new_thr = Vec3(
                     jnp.where(terminated, new_thr.x, new_thr.x * boost),
                     jnp.where(terminated, new_thr.y, new_thr.y * boost),
@@ -664,230 +558,149 @@ def _make_kernel(cfg: RenderConfig, nq: int, ns: int, nm: int,
             dir = _w3(update, new_dir, dir)
             alive = update
             return (ret, thr, pos, dir, alive, miss_dir, miss_thr,
-                    miss_jr, miss_jc, missed, rng_flatten(rng))
+                    miss_jr, miss_jc, missed, rng.carry())
 
         return bounce_body
 
-    def sample_once(quads, spheres, materials, cam_ref, scratch, rng, pos,
-                    dir, allow_exit, bounce_body=None):
-        """One path-trace sample from a prepared primary ray:
-        returns (ret, miss_state, rng).
+    def sample_once(bounce_body, rng_keys, rng_carry, pos, dir, allow_exit):
+        """One path-trace sample from a prepared primary ray: returns
+        (ret, miss_state, rng_carry).
 
-        ``allow_exit``: skip remaining bounce segments once every lane in
-        the block is dead — the TPU analog of the reference's
-        all_set(shouldBreak) early-out (v4 :731,781), at block instead of
-        8-lane granularity. Skipping also skips that segment's RNG draws,
-        so it is only legal when no later sample continues the same
-        sequential stream (counter RNG always; wang RNG's last sample).
-        Carried state lives in VMEM ``scratch`` refs so the skip is a real
-        branch (pl.when) rather than a mask."""
-        if bounce_body is None:
-            bounce_body = make_bounce_body(quads, spheres, materials,
-                                           cam_ref)
-        ret = Vec3(*(jnp.zeros((bh, bw)) for _ in range(3)))
-        thr = Vec3(*(jnp.ones((bh, bw)) for _ in range(3)))
-        alive = jnp.ones((bh, bw), jnp.bool_)
-        missed = jnp.zeros((bh, bw), jnp.bool_)
-        miss_dir = Vec3(jnp.zeros((bh, bw)), jnp.zeros((bh, bw)),
-                        jnp.ones((bh, bw)))
-        miss_thr = Vec3(*(jnp.zeros((bh, bw)) for _ in range(3)))
-        miss_jr = jnp.zeros((bh, bw))
-        miss_jc = jnp.zeros((bh, bw))
-
-        state = (ret, thr, pos, dir, alive, miss_dir, miss_thr,
-                 miss_jr, miss_jc, missed, rng_flatten(rng))
+        The bounce segments run in a rolled while loop. ``allow_exit``
+        (python or traced bool) ends the loop once every pixel of the
+        block is dead. Skipping a segment also skips its RNG draws, so
+        exiting is only legal when no later sample continues the same
+        sequential stream (counter RNG always; wang RNG's last sample)."""
+        zeros = jnp.zeros((bh, bw))
+        state = (Vec3(zeros, zeros, zeros), Vec3(*(jnp.ones((bh, bw)),) * 3),
+                 pos, dir, jnp.ones((bh, bw), jnp.bool_),
+                 Vec3(zeros, zeros, jnp.ones((bh, bw))),
+                 Vec3(zeros, zeros, zeros), zeros, zeros,
+                 jnp.zeros((bh, bw), jnp.bool_), rng_carry)
         n_segments = cfg.bounces + 1
 
-        if not allow_exit or n_segments <= 1:
-            # unconditional unroll (dead lanes fully masked, not free)
-            for _ in range(n_segments):
-                state = bounce_body(state)
+        def cond(c):
+            seg, state = c
+            more = seg < n_segments
+            if allow_exit is False:
+                return more
+            any_alive = jnp.max(jnp.where(state[4], 1.0, 0.0)) > 0.0
+            if allow_exit is True:
+                return more & any_alive
+            return more & (any_alive | ~allow_exit)
+
+        def body(c):
+            seg, state = c
+            return seg + 1, bounce_body(state, rng_keys)
+
+        _, state = lax.while_loop(cond, body, (jnp.int32(0), state))
+        (ret, _, _, _, _, miss_dir, miss_thr, miss_jr, miss_jc, missed,
+         rng_carry) = state
+        return ret, (miss_dir, miss_thr, miss_jr, miss_jc, missed), rng_carry
+
+    def kernel(scal_ref, *refs):
+        if baked is None:
+            quad_ref, sph_ref, mat_ref, cam_ref, *outs = refs
         else:
-            # Mosaic crashes on while_loop/cond with big vector CARRIES,
-            # but conditional SIDE EFFECTS on VMEM refs (pl.when) work:
-            # park the carried state in scratch refs, run each remaining
-            # segment only while any lane is still alive.
-            def write_state(s):
-                flat = _flatten_state(s)
-                for r, v in zip(scratch, flat):
-                    r[:] = v
-
-            def read_state():
-                return _unflatten_state([r[:] for r in scratch])
-
-            state = bounce_body(state)  # segment 0 always runs
-            write_state(state)
-            # Group remaining segments: each pl.when runs ``gran``
-            # segments between one scratch read and one write, halving
-            # (gran=2) the VMEM round-trips of the carried state at the
-            # cost of at most gran-1 extra dead segments per block (a
-            # dead segment is an identity on all carried state except
-            # the RNG, which nothing later consumes on this path).
-            gran = max(1, int(getattr(cfg, "exit_granularity", 1)))
-            left = n_segments - 1
-            while left > 0:
-                step = min(gran, left)
-                left -= step
-                any_alive = jnp.max(scratch[_ALIVE_SLOT][:]) > 0.0
-
-                @pl.when(any_alive)
-                def _(step=step):
-                    s = read_state()
-                    for _ in range(step):
-                        s = bounce_body(s)
-                    write_state(s)
-
-            state = read_state()
-
-        (ret, thr, pos, dir, alive, miss_dir, miss_thr, miss_jr,
-         miss_jc, missed, rng_state) = state
-        return (ret, (miss_dir, miss_thr, miss_jr, miss_jc, missed),
-                rng_unflatten(rng_state))
-
-    if export_parts:
-        # the backward kernel (kernels/backward.py) builds its own
-        # kernel body from these shared pieces — one physics
-        # implementation for forward and adjoint
-        import types
-
-        return types.SimpleNamespace(
-            make_bounce_body=make_bounce_body,
-            camera_ray_blk=camera_ray_blk,
-            trace=trace,
-            fetch_material=fetch_material,
-        )
-
-    def kernel(frame_ref, *rest):
-        if baked is not None and trained is None:
-            # fully baked: no table inputs at all
             quad_ref = sph_ref = mat_ref = cam_ref = None
-        else:
-            quad_ref, sph_ref, mat_ref, cam_ref = rest[:4]
-            rest = rest[4:]
-        (r_ref, g_ref, b_ref, md_x, md_y, md_z,
-         mt_x, mt_y, mt_z, jr_ref, jc_ref, missed_ref, *scratch) = rest
-        bi = pl.program_id(0)
+            outs = refs
         # row0: this shard's first GLOBAL pixel row (0 single-device;
         # axis_index * rows_per_shard under shard_map) — fragCoords and
-        # RNG seeds are global-pixel quantities. In flat128 mode the
-        # same scalar slot carries the first GROUP index instead.
-        row0 = frame_ref[1]
-        samp0 = frame_ref[2].astype(jnp.uint32)
-        if flat_gpr is not None:
-            # flat128 layout: planes are (P/128, 128); sublane = pixel
-            # group g, lane = pixel within group. row/col derive from g
-            # via an exhaustively-verified multiply-shift division
-            # (Mosaic has no i32 vector divide).
-            gpr = flat_gpr
-            k, m, s = _magic_div(gpr, (cfg.height + 1) * gpr)
-            g = row0 + bi * bh + jax.lax.broadcasted_iota(
-                jnp.int32, (bh, bw), 0)
-            row = ((g >> k) * m) >> s
-            col = ((g - row * gpr) * bw
-                   + jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 1))
-        else:
-            bj = pl.program_id(1)
-            row = row0 + bi * bh + jax.lax.broadcasted_iota(
-                jnp.int32, (bh, bw), 0)
-            col = bj * bw + jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 1)
+        # RNG seeds are global-pixel quantities
+        row0 = scal_ref[1]
+        samp0 = scal_ref[2].astype(jnp.uint32)
+        frame_u = scal_ref[0].astype(jnp.uint32)
+        row = row0 + pl.program_id(0) * bh + lax.broadcasted_iota(
+            jnp.int32, (bh, bw), 0)
+        col = pl.program_id(1) * bw + lax.broadcasted_iota(
+            jnp.int32, (bh, bw), 1)
         fy_i = (height - 1) - row
         frag_x = col.astype(jnp.float32)
         frag_y = fy_i.astype(jnp.float32)
-        frame = frame_ref[0]
-
-        # Mosaic lacks f32->u32 casts; derive the RNG seed coords from the
-        # integer iotas instead (identical values)
         fx_u = col.astype(jnp.uint32)
         fy_u = fy_i.astype(jnp.uint32)
 
-        acc = Vec3(*(jnp.zeros((bh, bw)) for _ in range(3)))
-        miss_state = None
-        quads = load_quads(quad_ref)
-        spheres = load_spheres(sph_ref)
-        materials = load_materials(mat_ref)
-        early = getattr(cfg, "early_exit", True)
+        cam = load_camera(cam_ref)
+        camera_ray = make_camera_ray(cam)
+        bounce_body = make_bounce_body(load_quads(quad_ref),
+                                       load_spheres(sph_ref),
+                                       load_materials(mat_ref), cam)
+        early = cfg.early_exit
+        inv_spp = 1.0 / cfg.spp
 
         if cfg.rng == "wang":
             # python-int literals (not jnp scalars): Pallas kernels may not
             # capture traced constants
-            seed = (fx_u * 1973 + fy_u * 9277
-                    + frame.astype(jnp.uint32) * 26699) | 1
-            rng = _SmemRng(seed)
+            keys = ()
+            seed = (fx_u * 1973 + fy_u * 9277 + frame_u * 26699) | 1
             # jitter/ray once per frame, shared by the spp loop (v4 :1109)
-            pos, dir, rng = camera_ray_blk(cam_ref, rng, frag_x, frag_y)
-            for s in range(cfg.spp):
-                # skipping segments skips their draws, so only the LAST
-                # sample of the sequential wang stream may exit early
-                ret, miss_state, rng = sample_once(
-                    quads, spheres, materials, cam_ref, scratch, rng, pos,
-                    dir, allow_exit=early and s == cfg.spp - 1)
-                acc = acc + ret * (1.0 / cfg.spp)
-        else:
-            for s in range(cfg.spp):
-                key0 = fx_u * 1973 + fy_u * 9277
-                # broadcast: key1 is built from the (scalar) frame index but
-                # rides in a (bh, bw) scratch ref across bounce segments
-                key1 = jnp.broadcast_to(
-                    frame.astype(jnp.uint32) * 26699
-                    + (jnp.uint32(s) + samp0) * jnp.uint32(40503)
-                    + jnp.uint32(1), (bh, bw))
-                rng = _CtrRng(key0, key1, jnp.zeros((bh, bw), jnp.uint32))
-                pos, dir, rng = camera_ray_blk(cam_ref, rng, frag_x, frag_y)
-                # counter streams are per-sample: always safe to exit
-                ret, miss_state, rng = sample_once(
-                    quads, spheres, materials, cam_ref, scratch, rng, pos,
-                    dir, allow_exit=early)
-                acc = acc + ret * (1.0 / cfg.spp)
+            pos, dir, carry = camera_ray(seed, keys, frag_x, frag_y)
 
-        miss_dir, miss_thr, miss_jr, miss_jc, missed = miss_state
-        r_ref[:] = acc.x
-        g_ref[:] = acc.y
-        b_ref[:] = acc.z
-        mt_x[:] = miss_thr.x
-        mt_y[:] = miss_thr.y
-        mt_z[:] = miss_thr.z
-        missed_ref[:] = jnp.where(missed, 1.0, 0.0)
-        md_x[:] = miss_dir.x
-        md_y[:] = miss_dir.y
-        md_z[:] = miss_dir.z
-        jr_ref[:] = miss_jr
-        jc_ref[:] = miss_jc
+            def sample(s, carry, last):
+                return sample_once(bounce_body, keys, carry, pos, dir,
+                                   early and last)
+        else:
+            key0 = fx_u * 1973 + fy_u * 9277
+
+            def sample(s, _, last):
+                key1 = jnp.broadcast_to(
+                    frame_u * 26699
+                    + (jnp.asarray(s, jnp.uint32) + samp0) * 40503 + 1,
+                    (bh, bw))
+                keys = (key0, key1)
+                pos, dir, carry = camera_ray(jnp.zeros((bh, bw), jnp.uint32),
+                                             keys, frag_x, frag_y)
+                return sample_once(bounce_body, keys, carry, pos, dir, early)
+
+            carry = jnp.zeros((bh, bw), jnp.uint32)
+
+        if cfg.spp == 1:
+            acc, miss_state, _ = sample(0, carry, True)
+        else:
+            # env frames split per sample (render_frame_pallas), so a
+            # multi-sample dispatch has no miss state to emit
+            def spp_body(s, c):
+                acc, carry = c
+                ret, _, carry = sample(s, carry, s == cfg.spp - 1)
+                return acc + ret * inv_spp, carry
+
+            zeros = jnp.zeros((bh, bw))
+            acc, _ = lax.fori_loop(0, cfg.spp, spp_body,
+                                   (Vec3(zeros, zeros, zeros), carry))
+
+        planes = [acc.x, acc.y, acc.z]
+        if env_out:
+            miss_dir, miss_thr, miss_jr, miss_jc, _ = miss_state
+            planes += [miss_dir.x, miss_dir.y, miss_dir.z,
+                       miss_thr.x, miss_thr.y, miss_thr.z, miss_jr, miss_jc]
+        for ref, plane in zip(outs, planes):
+            ref[...] = plane
 
     return kernel
 
 
-def _use_interpret() -> bool:
-    """Interpret-mode fallback on CPU: lets the whole Pallas path run (and
-    be tested for parity) without TPU hardware."""
-    import jax
+def num_warps(bh: int, bw: int, pixels_per_thread: int = 0) -> int:
+    """Warps per program for a (bh, bw) block: one thread per
+    ``pixels_per_thread`` pixels (default PIXELS_PER_THREAD), clamped to
+    Triton's 1..32."""
+    ppt = pixels_per_thread or PIXELS_PER_THREAD
+    return max(1, min(32, bh * bw // (32 * ppt)))
 
-    return jax.default_backend() == "cpu"
+
+def padded_extent(height: int, width: int, bh: int, bw: int):
+    """(rows, cols) rounded up to whole (bh, bw) blocks: the kernel
+    renders the padded frame and the wrapper crops it."""
+    return -(-height // bh) * bh, -(-width // bw) * bw
 
 
-def _pallas_render(scene, camera, texture, cfg: RenderConfig, frame,
-                   sample0: int = 0, row0=0, local_height=None,
-                   flat: bool = False, tables=None, baked_tables=None,
-                   trained=None):
-    """Shared pallas_call setup/dispatch; returns the raw output planes.
-
-    ``tables``: optional pre-packed (quad_tbl, sph_tbl, mat_tbl, cam_tbl)
-    — the differentiable entry (kernels/backward.py) feeds tables
-    directly so gradients flow through pack_scene's transpose; baking is
-    skipped (a baked scene is a compile-time constant, not a parameter)
-    UNLESS ``baked_tables``+``trained`` request PARTIAL baking: numpy
-    base tables plus the frozenset of trained families — only trained
-    cells read from the (traced) tables, everything else is a
-    compile-time constant (see _make_kernel).
+def _pallas_render(scene, camera, cfg: RenderConfig, frame,
+                   sample0=0, row0=0, local_height=None):
+    """Shared pallas_call setup/dispatch; returns the raw output planes
+    (3 color planes, + 8 deferred-env planes when env_mode != 'none').
 
     ``row0``/``local_height``: render only rows [row0, row0+local_height)
     of the global cfg.height image — the shard_map path passes each
     device's row offset (camera math and RNG seeds stay global-pixel).
-
-    ``flat``: flat128 pixel layout — output planes are (H*W/128, 128)
-    (sublane = 128-pixel group, lane = pixel), the layout that lets the
-    deferred env gather keep its lane batch minor (texture._gather_sublane;
-    avoids the 32x-padded narrow gather output). Requires width % 128 == 0;
-    blocks are (tile_height, 128) over a 1D grid.
     """
     cfg = cfg.validate()
     if cfg.spp > 1 and cfg.env_mode != "none":
@@ -897,113 +710,58 @@ def _pallas_render(scene, camera, texture, cfg: RenderConfig, frame,
         )
     bh, bw = cfg.tile_height, cfg.tile_width
     out_h = cfg.height if local_height is None else local_height
-    if flat:
-        if cfg.width % 128:
-            raise ValueError("flat128 layout needs width % 128 == 0")
-        bw = 128
-        n_groups = out_h * cfg.width // 128
-        while n_groups % bh:
-            bh //= 2
-    elif out_h % bh or cfg.width % bw:
-        raise ValueError(
-            f"render extent {cfg.width}x{out_h} not divisible by "
-            f"tile {bw}x{bh}"
-        )
+    hp, wp = padded_extent(out_h, cfg.width, bh, bw)
 
-    # bake the scene into the kernel when it is concrete (not traced):
-    # the material fetch collapses to distinct-value selects and shading
-    # paths the scene cannot exercise drop out (see _make_kernel)
-    import numpy as np
-    from jax.core import Tracer
-
-    a = cfg.ambient
-    if tables is not None:
-        quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
-        nq, ns, nm = quad_tbl.shape[0], sph_tbl.shape[0], mat_tbl.shape[0]
-        bake = False
-        baked = baked_tables if trained is not None else None
-    else:
-        concrete = not any(
-            isinstance(leaf, Tracer)
-            for leaf in jax.tree.leaves((scene, camera)))
-        bake = bool(getattr(cfg, "bake_scene", False)) and concrete
-
-    if tables is not None:
-        pass
-    elif bake:
+    # bake the scene into the kernel when it is concrete (not traced)
+    concrete = not any(isinstance(leaf, jax.core.Tracer)
+                       for leaf in jax.tree.leaves((scene, camera)))
+    if cfg.bake_scene and concrete:
         with jax.ensure_compile_time_eval():
-            quad_tbl, sph_tbl, mat_tbl = pack_scene(scene)
-        nq, ns, nm = quad_tbl.shape[0], sph_tbl.shape[0], mat_tbl.shape[0]
-        cam_np = np.array([
-            float(camera.position.x), float(camera.position.y),
-            float(camera.position.z), float(camera.distance),
-            float(camera.forward_z), a[0], a[1], a[2]], np.float32)
-        baked = (np.asarray(quad_tbl), np.asarray(sph_tbl),
-                 np.asarray(mat_tbl), cam_np)
+            tables = pack_scene(scene)
+            cam_tbl = pack_camera(camera, cfg)
+        baked = tuple(np.asarray(t) for t in (*tables, cam_tbl))
+        tables = ()
     else:
-        quad_tbl, sph_tbl, mat_tbl = pack_scene(scene)
-        nq, ns, nm = quad_tbl.shape[0], sph_tbl.shape[0], mat_tbl.shape[0]
-        cam_tbl = pack_camera(camera, cfg)
         baked = None
+        tables = (*pack_scene(scene), pack_camera(camera, cfg))
+    # (SceneBuilder pads an empty object family to one inert object, so
+    # no table is empty)
+    nq, ns = scene.quads.count, scene.spheres.count
+    nm = scene.materials.count
 
-    gpr = cfg.width // 128 if flat else None
-    kernel = _make_kernel(cfg, nq, ns, nm, bh, bw, baked=baked,
-                          flat_gpr=gpr, trained=trained)
-    if flat:
-        grid = (n_groups // bh,)
-        smem = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                                          memory_space=pltpu.SMEM)
-        blk = pl.BlockSpec((bh, bw), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-        plane = jax.ShapeDtypeStruct((n_groups, bw), jnp.float32)
-    else:
-        grid = (out_h // bh, cfg.width // bw)
-        smem = lambda shape: pl.BlockSpec(shape,
-                                          lambda i, j: (0,) * len(shape),
-                                          memory_space=pltpu.SMEM)
-        blk = pl.BlockSpec((bh, bw), lambda i, j: (i, j),
-                           memory_space=pltpu.VMEM)
-        plane = jax.ShapeDtypeStruct((out_h, cfg.width), jnp.float32)
-
-    n_rng = 1 if cfg.rng == "wang" else 3
-    scratch_shapes = (
-        [pltpu.VMEM((bh, bw), jnp.float32)] * _N_F32_SLOTS
-        + [pltpu.VMEM((bh, bw), jnp.uint32)] * n_rng
-    )
-
+    n_out = 3 if cfg.env_mode == "none" else 11
+    plane = jax.ShapeDtypeStruct((hp, wp), jnp.float32)
     scalars = jnp.stack([jnp.asarray(frame, jnp.int32).reshape(()),
                          jnp.asarray(row0, jnp.int32).reshape(()),
                          jnp.asarray(sample0, jnp.int32).reshape(())])
-    if baked is not None and trained is None:
-        in_specs = [smem((3,))]
-        args = (scalars,)
-    else:
-        in_specs = [
-            smem((3,)),
-            smem((nq, QUAD_COLS)),
-            smem((ns, SPH_COLS)),
-            smem((nm, MAT_COLS)),
-            smem((8,)),
-        ]
-        args = (scalars, quad_tbl, sph_tbl, mat_tbl, cam_tbl)
 
-    out_specs = [blk] * 12
-    out_shape = [plane] * 12
+    def call(interpret: bool):
+        kernel = _make_kernel(cfg, nq, ns, nm, bh, bw, baked=baked)
+        return pl.pallas_call(
+            kernel,
+            grid=(hp // bh, wp // bw),
+            in_specs=[pl.BlockSpec()] * (1 + len(tables)),
+            out_specs=[pl.BlockSpec((bh, bw), lambda i, j: (i, j))] * n_out,
+            out_shape=[plane] * n_out,
+            compiler_params=plgpu.CompilerParams(
+                num_warps=num_warps(bh, bw),
+                num_stages=1),
+            backend="triton",
+            interpret=interpret,
+            name="path_trace_block",
+        )
 
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch_shapes,
-        interpret=_use_interpret(),
-    )(*args)
+    # the interpreter is chosen by the platform the call is lowered for:
+    # only the CPU lowering interprets; on CUDA the kernel compiles
+    planes = lax.platform_dependent(
+        scalars, *tables, cpu=call(True), cuda=call(False))
+    if (hp, wp) != (out_h, cfg.width):
+        planes = [p[:out_h, :cfg.width] for p in planes]
+    return planes
 
 
 def render_frame_pallas(scene, camera, texture, cfg: RenderConfig,
-                        frame, spp_offset: int = 0, row0=0,
-                        local_height=None, packed: bool = False):
+                        frame, spp_offset=0, row0=0, local_height=None):
     """Pallas-backed frame render; signature-compatible with
     render_frame. The deferred env gather + final add runs in XLA after
     the kernel.
@@ -1035,129 +793,26 @@ def render_frame_pallas(scene, camera, texture, cfg: RenderConfig,
         for s in range(cfg.spp):
             c = _env_combined(scene, camera, texture, one, frame,
                               sample0=spp_offset + s, row0=row0,
-                              local_height=local_height, packed=packed)
-            if acc is None:
-                acc = c
-            elif packed:
-                acc = acc + c
-            else:
-                acc = Vec3(acc.x + c.x, acc.y + c.y, acc.z + c.z)
-        inv = 1.0 / cfg.spp
-        return acc * inv if packed else Vec3(
-            acc.x * inv, acc.y * inv, acc.z * inv)
+                              local_height=local_height)
+            acc = c if acc is None else acc + c
+        return acc * (1.0 / cfg.spp)
     return _env_combined(scene, camera, texture, cfg, frame,
                          sample0=spp_offset, row0=row0,
-                         local_height=local_height, packed=packed)
-
-
-def supports_fused_combine(cfg: RenderConfig) -> bool:
-    """True when render_accumulate_pallas applies: the pallas+env frame
-    step that keeps the deferred env gather CHANNEL-MAJOR (texture._gather
-    writes (4, ...) planar planes directly — the cheapest measured
-    consumption path, scripts/combine_paths_bench.py) and, for spp > 1,
-    runs one kernel + one gather PER SAMPLE combined incrementally (a
-    single batched gather over all samples OOMs; see
-    render_accumulate_pallas). packed4 accumulation keeps the legacy
-    packed-combine path (render_frame_pallas packed=True) — the fused
-    step emits planar Vec3 color only."""
-    return (
-        cfg.backend == "pallas"
-        and cfg.env_mode != "none"
-        and not cfg.packed_accum
-        and (cfg.spp == 1 or cfg.rng == "counter")
-    )
-
-
-def render_accumulate_pallas(scene, camera, texture, cfg: RenderConfig,
-                             frame, accum, packed_table=None):
-    """One progressive frame: megakernel -> deferred env resolve ->
-    progressive accumulate onto the donated planar accum planes.
-
-    spp == 1 delegates to render_frame_pallas (whose deferred env lookup
-    is already the planar channel-major gather) + accumulate. spp > 1
-    (counter RNG) runs one kernel dispatch + one gather per sample inside
-    the single jitted step and resolves all samples with one elementwise
-    combine (per-sample gathers on purpose: see the OOM note below).
-
-    ``packed_table`` is accepted for call-site compatibility (the table
-    stack is hoisted by XLA loop-invariant code motion either way).
-    """
-    from cpuperformanceraytracer_tpu.render.frame import accumulate_frame
-    from cpuperformanceraytracer_tpu.texture.texture import (
-        _gather,
-        env_texel_flat_index,
-    )
-
-    cfg = cfg.validate()
-    flat = cfg.flat_accum
-    if cfg.env_mode == "none" or (cfg.spp == 1 and not flat):
-        color = render_frame_pallas(scene, camera, texture, cfg, frame)
-        return accumulate_frame(accum, color, frame)
-
-    if cfg.spp > 1 and cfg.rng != "counter":
-        raise NotImplementedError(
-            "batched multi-sample env frames need rng='counter' (the "
-            "wang stream is sequential across the sample loop)")
-
-    from cpuperformanceraytracer_tpu.texture.texture import _gather_sublane
-
-    one = cfg.replace(spp=1)
-    gather = _gather_sublane if flat else _gather
-    # one kernel + one gather PER SAMPLE, combined INCREMENTALLY: XLA
-    # materializes a narrow (queries, 4) gather intermediate padded
-    # 4->128 lanes (32x HBM), so a single stacked gather over all
-    # samples would allocate spp x that — 15.8 GB (an OOM) at 16-sample
-    # 1080p — and even per-sample planes summed at the END would keep
-    # spp x 12 planes live at once. The running sum frees each sample's
-    # planes as soon as its contribution is added.
-    color = None
-    for s in range(cfg.spp):
-        outs = _pallas_render(scene, camera, texture, one, frame,
-                              sample0=s, flat=flat)
-        (r, g, b, mdx, mdy, mdz, mtx, mty, mtz, jr, jc, missed) = outs
-        idx = env_texel_flat_index(texture, Vec3(mdx, mdy, mdz), cfg,
-                                   jr, jc)
-        env = gather(texture, idx)
-        contrib = Vec3(r + env.x * mtx, g + env.y * mty, b + env.z * mtz)
-        color = contrib if color is None else Vec3(
-            color.x + contrib.x, color.y + contrib.y, color.z + contrib.z)
-    if cfg.spp > 1:
-        inv = 1.0 / cfg.spp
-        color = Vec3(color.x * inv, color.y * inv, color.z * inv)
-    return accumulate_frame(accum, color, frame)
+                         local_height=local_height)
 
 
 def _env_combined(scene, camera, texture, cfg, frame, sample0=0, row0=0,
-                  local_height=None, packed=False):
-    """One spp<=1-per-dispatch render + deferred env combine.
-
-    ``packed``: return one (H, W, 4) RGBX array instead of Vec3 planes —
-    the env gather's packed texels are consumed in their own layout,
-    skipping the per-frame channel-unpack copy (config.accum_layout)."""
-    outs = _pallas_render(scene, camera, texture, cfg, frame,
-                          sample0=sample0, row0=row0,
-                          local_height=local_height)
-    (r, g, b, mdx, mdy, mdz, mtx, mty, mtz, jr, jc, missed) = outs
-
+                  local_height=None):
+    """One spp<=1-per-dispatch render + deferred env combine."""
+    planes = _pallas_render(scene, camera, cfg, frame, sample0=sample0,
+                            row0=row0, local_height=local_height)
+    r, g, b = planes[:3]
     if cfg.env_mode == "none":
         # ambient already added in-kernel (constant, no gather needed)
-        if packed:
-            return jnp.stack([r, g, b, jnp.zeros_like(r)], axis=-1)
         return Vec3(r, g, b)
-
+    mdx, mdy, mdz, mtx, mty, mtz, jr, jc = planes[3:]
     # a never-missed pixel has miss_throughput == 0, so no mask is
     # needed: env * 0 == 0 (env is finite for the default miss state)
-    miss_dir = Vec3(mdx, mdy, mdz)
-    if packed:
-        from cpuperformanceraytracer_tpu.texture.texture import (
-            sample_environment_deferred_packed,
-        )
-
-        env4 = sample_environment_deferred_packed(texture, miss_dir, cfg,
-                                                  jr, jc)
-        zero = jnp.zeros_like(r)
-        rgb4 = jnp.stack([r, g, b, zero], axis=-1)
-        thr4 = jnp.stack([mtx, mty, mtz, zero], axis=-1)
-        return rgb4 + env4 * thr4
-    env = sample_environment_deferred(texture, miss_dir, cfg, jr, jc)
+    env = sample_environment_deferred(texture, Vec3(mdx, mdy, mdz), cfg,
+                                      jr, jc)
     return Vec3(r + env.x * mtx, g + env.y * mty, b + env.z * mtz)

@@ -1,11 +1,11 @@
 """Parallel layer: device mesh + shard_map sharding of the frame function.
 
-TPU-native replacement for the reference's L3 scheduling layer
+The replacement for the reference's L3 scheduling layer
 (work_queue.{h,cpp} + the v4 private clone): the dynamic 150-tile
 semaphore ring queue becomes STATIC SPMD sharding over a
 ``jax.sharding.Mesh`` — no queue, no load balancing, because every
 pixel-row shard costs the same by construction and XLA collectives
-(psum over ICI) replace the interlocked completion counter
+(psum) replace the interlocked completion counter
 (SURVEY.md section 2.3 mapping table).
 
 Mesh axes:

@@ -13,11 +13,9 @@ def make_mesh(
     axis_names: Sequence[str] = ("px", "spp"),
     devices=None,
 ) -> Mesh:
-    """Mesh of the given shape over the available devices.
-
-    On a pod slice, callers should shape the mesh so the "px" axis maps
-    to ICI-adjacent devices (jax.make_mesh picks a good assignment by
-    default)."""
+    """Mesh of the given shape over the available devices (the cards of
+    a host reach each other at one rate, so the shape follows the
+    algorithm alone)."""
     if devices is not None:
         import numpy as np
 

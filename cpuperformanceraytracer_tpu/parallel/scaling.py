@@ -1,10 +1,8 @@
 """Scaling harness: rays/s at 1 device vs N devices on a mesh.
 
-The BASELINE.json protocol measures rays/s at 1 chip / 1 host / N>=2
-hosts and requires >=90% linear scaling to 2 hosts. On real hardware
-this runs unchanged over an ICI/DCN mesh; without one it runs on the
-virtual CPU mesh to validate the sharding logic (speedup there reflects
-host cores, not ICI, and is reported as such).
+Measures rays/s at 1 device and at N devices of one mesh. On the
+virtual CPU mesh it validates the sharding logic only (a speedup there
+reflects host cores, not the cards).
 """
 
 from __future__ import annotations
@@ -19,7 +17,6 @@ from cpuperformanceraytracer_tpu.config import RenderConfig
 from cpuperformanceraytracer_tpu.parallel.mesh import make_mesh
 from cpuperformanceraytracer_tpu.parallel.shard import make_sharded_frame_fn
 from cpuperformanceraytracer_tpu.render.frame import make_frame_fn, zero_accum
-from cpuperformanceraytracer_tpu.utils.timing import device_sync
 
 
 @dataclasses.dataclass
@@ -39,11 +36,11 @@ def _time_frames(frame_fn, scene, camera, texture, cfg, frames: int) -> float:
     warm = max(1, cfg.warmup_frames)
     for f in range(warm):
         accum = frame_fn(scene, camera, texture, f, accum)
-    device_sync(accum)
+    jax.block_until_ready(accum)
     t0 = time.perf_counter()
     for f in range(warm, warm + frames):
         accum = frame_fn(scene, camera, texture, f, accum)
-    device_sync(accum)
+    jax.block_until_ready(accum)
     return (time.perf_counter() - t0) / frames * 1e3
 
 

@@ -5,8 +5,13 @@ The replacement for the reference's dynamic work queue
 over the mesh "px" axis (every shard renders its block — the cost is
 uniform by construction, so no load balancing is needed), and the spp
 axis shards over "spp" with counter-RNG sample offsets, reduced with a
-``psum`` over ICI — the collective that replaces the interlocked
-completion counter + semaphore join (work_queue.cpp:17-66).
+``psum`` — the collective that replaces the interlocked completion
+counter + semaphore join (work_queue.cpp:17-66).
+
+The same function is the sharded training path: under ``jax.grad``
+(backend "xla"), replicated scene/texture parameters transpose to a
+psum of their cotangents, so gradients all-reduce with no
+hand-written communication.
 """
 
 from __future__ import annotations
@@ -29,13 +34,17 @@ def _replicated_like(tree):
 
 
 def sharded_render_frame(scene, camera, texture, cfg: RenderConfig, frame,
-                         mesh: Mesh) -> Vec3:
+                         mesh: Mesh, baked=None) -> Vec3:
     """One frame, sharded: rows over "px", samples over "spp".
 
     Requires cfg.height % mesh.shape["px"] == 0 (static sharding — the
     analog of CheckValidSettings' tile divisibility rule) and
     cfg.rng == "counter" whenever spp is sharded (wang streams are
     sequential per pixel and cannot split mid-stream).
+    
+    ``baked``: optional concrete (scene, camera) for backend "pallas":
+    each shard's kernel then has the scene as compile-time constants, as
+    the single-device frame step does (render.frame.make_frame_fn).
     """
     n_px = mesh.shape.get("px", 1)
     n_spp = mesh.shape.get("spp", 1)
@@ -75,13 +84,15 @@ def sharded_render_frame(scene, camera, texture, cfg: RenderConfig, frame,
         row0 = (lax.axis_index("px") * h_local) if n_px > 1 else 0
 
         if cfg.backend == "pallas":
-            # the fast path under SPMD: each shard runs the megakernel on
+            # the fast path under SPMD: each shard runs the kernel on
             # its global pixel-row window; spp shards offset the
             # counter-RNG sample window (one partial sum each, psum'd)
             from cpuperformanceraytracer_tpu.kernels.megakernel import (
                 render_frame_pallas,
             )
 
+            if baked is not None:
+                scene, camera = baked
             color = render_frame_pallas(
                 scene, camera, texture, cfg.replace(spp=spp_local), frame,
                 spp_offset=spp_idx * spp_local, row0=row0,
@@ -112,106 +123,48 @@ def sharded_render_frame(scene, camera, texture, cfg: RenderConfig, frame,
     return Vec3(planes[0], planes[1], planes[2])
 
 
-def sharded_render_frame_diff(scene, camera, texture, cfg: RenderConfig,
-                              frame, mesh: Mesh) -> Vec3:
-    """DIFFERENTIABLE sharded frame: the multi-chip training path.
-
-    Forward: each shard runs the Pallas megakernel + env combine on its
-    pixel-row window ("px") and sample window ("spp", psum-reduced).
-    Backward: each shard runs the adjoint megakernel
-    (kernels/backward.py) on its own rows; scene/texture/camera
-    parameter cotangents ALL-REDUCE over ICI automatically through the
-    shard_map transpose (replicated inputs transpose to psum) — the
-    gradient collective the north star asks for, with no hand-written
-    communication. Requires cfg.backend == "pallas" and rng "counter".
-    """
-    n_px = mesh.shape.get("px", 1)
-    n_spp = mesh.shape.get("spp", 1)
-    if cfg.height % n_px:
-        raise ValueError(f"height {cfg.height} not divisible by px shards {n_px}")
-    if cfg.spp % n_spp:
-        raise ValueError(f"spp {cfg.spp} not divisible by spp shards {n_spp}")
-    if cfg.rng != "counter":
-        raise ValueError('sharded diff rendering requires rng="counter"')
-    spp_local = cfg.spp // n_spp
-    h_local = cfg.height // n_px
-
-    scene_spec = _replicated_like(scene)
-    camera_spec = _replicated_like(camera)
-    texture_spec = _replicated_like(texture) if texture is not None else None
-    # Texture's width/height ride the pytree as leaves and arrive traced
-    # inside shard_map; the diff path needs them STATIC (they size the
-    # backward kernel) — capture the python ints here
-    tex_dims = (None if texture is None
-                else (int(texture.width), int(texture.height)))
-    # Partial baking: inside shard_map EVERY operand leaf is traced, so
-    # derive the trained families + baked base tables out here, where
-    # trained-vs-constant is still visible (kernels/backward.py)
-    from cpuperformanceraytracer_tpu.kernels.backward import (
-        bake_base_tables,
-        derive_trained,
-        render_frame_pallas_diff,
-    )
-
-    trained = derive_trained(scene, camera, texture)
-    baked = bake_base_tables(scene, camera, cfg)
-
-    @partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(scene_spec, camera_spec, texture_spec, P()),
-        out_specs=P(None, "px", None),
-        check_vma=False,
-    )
-    def shard_fn(scene, camera, texture, frame):
-        if texture is not None:
-            texture = texture._replace(width=tex_dims[0], height=tex_dims[1])
-        spp_idx = lax.axis_index("spp") if n_spp > 1 else 0
-        row0 = (lax.axis_index("px") * h_local) if n_px > 1 else 0
-        color = render_frame_pallas_diff(
-            scene, camera, texture, cfg, frame,
-            spp_offset=spp_idx * spp_local, row0=row0,
-            local_height=h_local if n_px > 1 else None,
-            spp_count=spp_local,
-            trained=trained, baked=baked,
-        )
-        planes = jnp.stack([color.x, color.y, color.z])
-        if n_spp > 1:
-            planes = lax.psum(planes, "spp") / n_spp
-        return planes
-
-    planes = shard_fn(scene, camera, texture, jnp.asarray(frame, jnp.uint32))
-    return Vec3(planes[0], planes[1], planes[2])
+def _bake(cfg: RenderConfig, scene, camera):
+    if cfg.backend == "pallas" and cfg.bake_scene and scene is not None:
+        return scene, camera
+    return None
 
 
-def make_sharded_frame_fn(cfg: RenderConfig, mesh: Mesh):
+def make_sharded_frame_fn(cfg: RenderConfig, mesh: Mesh, scene=None,
+                          camera=None):
     """Jitted sharded progressive step:
-    (scene, camera, texture, frame, accum) -> accum'."""
+    (scene, camera, texture, frame, accum) -> accum'. A concrete
+    ``scene``/``camera`` is baked into the Pallas kernel, as in
+    render.frame.make_frame_fn."""
     cfg = cfg.validate()
+    baked = _bake(cfg, scene, camera)
 
     @partial(jax.jit, donate_argnums=(4,), static_argnames=())
     def step(scene, camera, texture, frame, accum):
-        color = sharded_render_frame(scene, camera, texture, cfg, frame, mesh)
+        color = sharded_render_frame(scene, camera, texture, cfg, frame, mesh,
+                                     baked)
         return accumulate_frame(accum, color, frame)
 
     return step
 
 
 def make_sharded_multi_frame_fn(cfg: RenderConfig, mesh: Mesh,
-                                frames_per_dispatch: int):
+                                frames_per_dispatch: int, scene=None,
+                                camera=None):
     """Jitted K-frame sharded step — the mesh analog of
     render.frame.make_multi_frame_fn: K progressive frames ride one
     dispatch via lax.fori_loop (the shard_map is traced once inside the
-    loop body), so the multi-chip offline path pays per-dispatch overhead
-    once per K frames instead of per frame."""
+    loop body), so the multi-card offline path pays per-dispatch overhead
+    once per K frames instead of per frame. ``scene``/``camera``: as
+    make_sharded_frame_fn."""
     cfg = cfg.validate()
+    baked = _bake(cfg, scene, camera)
 
     @partial(jax.jit, donate_argnums=(4,), static_argnames=())
     def step_k(scene, camera, texture, frame0, accum):
         def body(i, acc):
             frame = frame0 + i
             color = sharded_render_frame(scene, camera, texture, cfg,
-                                         frame, mesh)
+                                         frame, mesh, baked)
             return accumulate_frame(acc, color, frame)
 
         return jax.lax.fori_loop(0, frames_per_dispatch, body, accum)

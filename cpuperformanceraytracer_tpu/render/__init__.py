@@ -2,7 +2,7 @@
 
 The integrator is written once, per-ray, and serves as BOTH the JAX-CPU
 parity oracle (run un-jitted / on CPU) and the production XLA path
-(vmapped + jitted on TPU) — the same trick the reference used by keeping
+(vmapped + jitted on the GPU) — the same trick the reference used by keeping
 the scalar kernel as executable ground truth for the SIMD ladder
 (SURVEY.md section 4), except here the two share one source of truth by
 construction.

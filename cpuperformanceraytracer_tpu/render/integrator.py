@@ -3,10 +3,10 @@
 This is the re-derivation of the reference's L2 kernel
 (demofox_path_tracing_optimization_v4.cpp:722-910 GetColorForRay,
 :575-718 intersection ops) in scalar-per-ray JAX. Control flow is pure
-``jnp.where`` masking over a fixed bounce count — the direct TPU analog
-of the reference's SIMT-on-SIMD lane masks, minus the ``all_set``
-early-outs (a fixed trip count is what XLA/TPU wants; divergence costs
-nothing extra because every lane always runs the full pipeline).
+``jnp.where`` masking over a fixed bounce count — the direct analog of
+the reference's SIMT-on-SIMD lane masks, minus the ``all_set``
+early-outs (a fixed trip count is what XLA wants; every lane always
+runs the full pipeline). The Pallas kernel adds the block early-out.
 
 Object intersection is vectorized across the object axis: each per-ray
 test evaluates all quads/spheres at once ((N,) arrays) and reduces with
@@ -81,16 +81,17 @@ class Hit(NamedTuple):
 def _safe_normalize(v: Vec3) -> Vec3:
     """Normalize with a clamped denominator: NaN-free for zero vectors
     (the TIR zero-refraction direction, and normal+unit == 0 corner) in
-    both the primal and reverse-mode gradients."""
-    d2 = jnp.maximum(dot3(v, v), 1e-20)
-    return v * (1.0 / jnp.sqrt(d2))
+    both the primal and reverse-mode gradients. ``rsqrt`` is what XLA
+    makes of ``1/sqrt`` on every backend; writing it out lets the Pallas
+    kernel emit the same instruction (kernels/megakernel.py)."""
+    return v * lax.rsqrt(jnp.maximum(dot3(v, v), 1e-20))
 
 
 def _onehot_select(idx: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
     """table[idx] via one-hot contraction: for tables of <=O(100) entries
-    a broadcast-compare-sum beats a gather on TPU (the reference's
-    17-way _mm256_i32gather_ps GatherMaterials, v4 :389-417, has no cheap
-    TPU analog — this is the idiomatic replacement)."""
+    a broadcast-compare-sum fuses into the surrounding elementwise code
+    (the replacement for the reference's 17-way _mm256_i32gather_ps
+    GatherMaterials, v4 :389-417)."""
     n = table.shape[-1]
     onehot = (jnp.arange(n, dtype=jnp.int32) == idx).astype(table.dtype)
     return jnp.sum(onehot * table, axis=-1)
@@ -227,7 +228,7 @@ def color_for_ray(scene: Scene, derived, texture, cfg, start_pos: Vec3,
     ``cfg.bounces + 1`` with per-lane alive masking.
 
     Differences from the reference, all deliberate and flag-gated:
-      - exact math everywhere (no rcp/rsqrt/approx_exp);
+      - no reciprocal or exp approximations beyond the compiler's own;
       - roulette termination configurable: the reference v4 boosts
         survivors WITHOUT terminating (:890-900) — its "v4_quirk" mode
         here; "terminate" implements the correct v3-scalar semantics.

@@ -1,6 +1,6 @@
 """Scene layer: geometry + material pytrees, builder API, scene presets.
 
-TPU-native mirror of the reference's L1 scene representation
+The mirror of the reference's L1 scene representation
 (demofox_path_tracing_optimization_v4.cpp:195-417, 1368-1496): quads are
 stored with precomputed normals and dual-edge ("bivector") barycentric
 vectors, materials in SoA arrays, everything as stacked jnp arrays so

@@ -10,7 +10,7 @@ next to the bounce loop.
 
 Everything is stacked: a field of N objects is one (N,) array per scalar
 component (Vec3 of (N,) arrays for points). Per-ray code broadcasts a
-scalar ray against the (N,) object axis and min-reduces — the TPU
+scalar ray against the (N,) object axis and min-reduces — the
 replacement for the reference's unrolled per-object loop with masked
 blends (TestSceneTrace, :699-718).
 """
@@ -46,8 +46,8 @@ class Materials(NamedTuple):
 
     Mirror of SceneMaterialSOA (:330-349). The per-ray fetch is a one-hot
     contraction over this table rather than a gather — for NM <= 12 a
-    broadcast-compare-select is the fast TPU shape (SURVEY.md section 7
-    step 4).
+    broadcast-compare-select fuses into the surrounding elementwise code
+    (SURVEY.md section 7 step 4).
     """
 
     albedo: Vec3

@@ -3,8 +3,7 @@
 Replaces the reference's stb_image-based asset loading
 (asset_loading.cpp, stb_image.h) with an own RGBE codec (pure numpy with
 an optional C++ fast path, native/rgbe.cpp) and its gather-based SIMD
-samplers (texture.cpp) with jnp one-hot/gather lookups that XLA lowers
-well on TPU.
+samplers (texture.cpp) with jnp gather lookups.
 """
 
 from cpuperformanceraytracer_tpu.texture.hdr import (  # noqa: F401

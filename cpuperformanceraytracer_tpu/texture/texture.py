@@ -28,11 +28,9 @@ class Texture(NamedTuple):
     """f32 RGB texture stored as three flat (H*W,) channel planes.
 
     The SoA planes mirror the reference's channel-base-pointer layout
-    (texture.cpp:16-27); gathers do NOT read them separately. On TPU a
-    gather's cost is per QUERY, not per element, so ``_gather`` stacks
-    the planes into loop-invariant (H*W, 3) rows (hoisted by XLA) and
-    row-gathers once — measured ~5x faster than three rank-1 channel
-    takes (see ``_gather``).
+    (texture.cpp:16-27); ``_gather`` stacks them into one loop-invariant
+    (4, H*W) table (hoisted by XLA) and gathers all channels of a texel
+    with one query.
     """
 
     r: jnp.ndarray
@@ -71,38 +69,11 @@ def load_cubemap_texture(paths) -> Texture:
     return texture_from_array(np.concatenate(faces, axis=0))
 
 
-# max queries per gather op: XLA materializes a (queries, 4) gather
-# intermediate physically padded 4->128 lanes (32x), i.e. ~512 MB per
-# 1M queries — chunking big gathers (4K frames, multi-sample batches)
-# bounds that temp and lets XLA free it between chunks. 1M keeps the
-# 720p headline frame (921600 queries) in a single unchunked gather.
-_GATHER_CHUNK = 1 << 20
-
-
 def _gather(tex: Texture, flat_idx) -> Vec3:
-    """One channel-major gather: (4, *idx.shape) planar texel planes.
-
-    On TPU, XLA lowers a gather to a per-QUERY loop, so cost scales with
-    queries, not elements — and the row stride decides the rate: 16-byte
-    power-of-two rows are the fast path ((N,3) rows are 26x slower,
-    scripts/gather_microbench.py). The remaining question is the OUTPUT
-    layout: a (N, 4) row-gather output is channel-minor and every
-    consumer wants planar, so XLA inserts a ~0.6 ms/frame retile at 720p
-    no matter how it is consumed (relayout copy, dense reshape for a
-    lane-shuffle kernel, or slice fusions — all measured within 0.1 ms
-    of each other, scripts/combine_paths_bench.py). Leading with the
-    offset dim (operand (4, N), offset_dims=(0,)) makes the gather WRITE
-    planar (4, ...) planes directly — the transpose rides inside the
-    gather op itself and measures cheapest end-to-end, and the per-plane
-    slices below are free views."""
-    if flat_idx.ndim >= 2 and flat_idx.size > _GATHER_CHUNK:
-        rows = flat_idx.shape[0]
-        per_row = flat_idx.size // rows
-        step = max(1, _GATHER_CHUNK // per_row)
-        parts = [_gather(tex, flat_idx[i:i + step])
-                 for i in range(0, rows, step)]
-        return Vec3(*(jnp.concatenate([getattr(p, c) for p in parts],
-                                      axis=0) for c in "xyz"))
+    """One channel-major gather: texel ``flat_idx`` of every channel,
+    written as planar (4, *idx.shape) planes (operand (4, N) with the
+    channel as the offset dim), so the per-plane slices below are views.
+    Under jax.grad its transpose is a scatter-add into the texel planes."""
     tt = jnp.stack(
         [tex.r, tex.g, tex.b, jnp.zeros_like(tex.r)], axis=0)  # (4, N)
     out = jax.lax.gather(
@@ -114,46 +85,6 @@ def _gather(tex: Texture, flat_idx) -> Vec3:
         mode=jax.lax.GatherScatterMode.CLIP,
     )
     return Vec3(out[0], out[1], out[2])
-
-
-def _gather_sublane(tex: Texture, idx) -> Vec3:
-    """Lane-batched gather for flat128 layouts: ``idx`` (..., 128) ->
-    Vec3 of (..., 128) planes.
-
-    Key memory fact (measured via an OOM dump, v5e): any gather output
-    whose MINOR dim is the 4-texel row is physically padded 4->128 by
-    the T(8,128) tiling — a 32x HBM expansion that the gather writes and
-    the consumer re-reads (~450 MB and ~0.6 ms/frame at 720p; 15.8 GB —
-    an outright OOM — for a 16-sample 1080p batch). Placing the channel
-    dim SECOND-minor (output (..., 4, 128), offset_dims=(ndim-1,)) pads
-    only 4->8 sublanes (2x), and the per-channel sublane slices fuse
-    into elementwise consumers. Requires the caller to run in the
-    flat (P/128, 128) pixel layout so the 128-lane batch is minor.
-    """
-    tt = jnp.stack(
-        [tex.r, tex.g, tex.b, jnp.zeros_like(tex.r)], axis=-1)  # (N, 4)
-    out = jax.lax.gather(
-        tt, idx[..., None],
-        dimension_numbers=jax.lax.GatherDimensionNumbers(
-            offset_dims=(idx.ndim - 1,), collapsed_slice_dims=(0,),
-            start_index_map=(0,)),
-        slice_sizes=(1, 4),
-        mode=jax.lax.GatherScatterMode.CLIP,
-    )  # (..., 4, 128)
-    return Vec3(out[..., 0, :], out[..., 1, :], out[..., 2, :])
-
-
-def _gather_packed(tex: Texture, flat_idx) -> jnp.ndarray:
-    """Row-gather returning the raw packed (..., 4) RGBX texels.
-
-    Slicing the packed gather output into channel planes costs an XLA
-    layout copy (~0.6 ms/frame at 720p on v5e, docs/PERFORMANCE.md), so
-    the frame path keeps the env radiance packed all the way through
-    accumulation (scripts/combine_microbench.py) and only unpacks at
-    image-write time. The pad channel is always 0."""
-    rgb = jnp.stack(
-        [tex.r, tex.g, tex.b, jnp.zeros_like(tex.r)], axis=-1)
-    return jnp.take(rgb, flat_idx, axis=0)
 
 
 def texel_fetch(tex: Texture, row, col) -> Vec3:
@@ -227,9 +158,8 @@ def sample_stochastic_with_jitter(tex: Texture, uv: Vec2, jr, jc) -> Vec3:
 def sample_stochastic(tex: Texture, uv: Vec2, rng):
     """Single-tap stochastic bilinear: jittered nearest, 2 draws
     (TexelSampleRandom, texture.cpp:78-86). In expectation this equals
-    bilinear filtering, and it is the reference's default env-map path —
-    which happens to be the ideal TPU shape too (one gather, no
-    neighborhood taps)."""
+    bilinear filtering, and it is the reference's default env-map path
+    (one gather, no neighborhood taps)."""
     jr, rng = rng.next01()
     jc, rng = rng.next01()
     return sample_stochastic_with_jitter(tex, uv, jr, jc), rng
@@ -336,44 +266,6 @@ def sample_environment_deferred(tex, direction: Vec3, cfg, jr, jc) -> Vec3:
     return sample_nearest(tex, uv)
 
 
-def sample_environment_deferred_packed(tex, direction: Vec3, cfg, jr, jc):
-    """Packed (..., 4) RGBX variant of :func:`sample_environment_deferred`
-    — identical taps and math, but the gathered texels stay in the
-    gather's packed row layout (pad channel 0) so the caller can combine
-    and accumulate without the per-frame channel-unpack copy."""
-    if cfg.env_mode == "equirect":
-        d = (Vec3(-direction.x, direction.y, -direction.z)
-             if cfg.env_flip_xz else direction)
-        uv = equirect_uv(d)
-    else:
-        uv = cubemap_uv(direction)
-    if cfg.env_sampling == "stochastic":
-        return _gather_packed(tex, stochastic_flat_index(tex, uv, jr, jc))
-    if cfg.env_sampling == "bilinear":
-        row = uv.y * (tex.height - 1)
-        col = uv.x * (tex.width - 1)
-        r0, r1 = jnp.floor(row), jnp.ceil(row)
-        c0, c1 = jnp.floor(col), jnp.ceil(col)
-        dv = (row - r0)[..., None]
-        du = (col - c0)[..., None]
-
-        def tap(r, c):
-            r = jnp.clip(r.astype(jnp.int32), 0, tex.height - 1)
-            c = jnp.clip(c.astype(jnp.int32), 0, tex.width - 1)
-            return _gather_packed(tex, r * tex.width + c)
-
-        c00, c10 = tap(r0, c0), tap(r0, c1)
-        c01, c11 = tap(r1, c0), tap(r1, c1)
-        top = c00 + (c10 - c00) * du
-        bot = c01 + (c11 - c01) * du
-        return top + (bot - top) * dv
-    row = jnp.clip((uv.y * (tex.height - 1)).astype(jnp.int32),
-                   0, tex.height - 1)
-    col = jnp.clip((uv.x * (tex.width - 1)).astype(jnp.int32),
-                   0, tex.width - 1)
-    return _gather_packed(tex, row * tex.width + col)
-
-
 def bilinear_resample(rgb: np.ndarray, out_width: int,
                       out_height: int) -> np.ndarray:
     """Pixel-center bilinear resample of an (H, W, 3) image
@@ -401,33 +293,6 @@ def bilinear_resample(rgb: np.ndarray, out_width: int,
     top = c00 + (c10 - c00) * du
     bot = c01 + (c11 - c01) * du
     return top + (bot - top) * dv
-
-
-def env_texel_flat_index(tex, direction: Vec3, cfg, jr, jc):
-    """Flat texel index of the deferred env lookup (stochastic or
-    nearest sampling only — bilinear needs 4 taps + planar lerp weights).
-    Matches sample_environment_deferred's tap exactly."""
-    if cfg.env_mode == "equirect":
-        d = (Vec3(-direction.x, direction.y, -direction.z)
-             if cfg.env_flip_xz else direction)
-        uv = equirect_uv(d)
-    else:
-        uv = cubemap_uv(direction)
-    if cfg.env_sampling == "stochastic":
-        return stochastic_flat_index(tex, uv, jr, jc)
-    # nearest: truncation + clamp, as texel_fetch/sample_nearest
-    row = jnp.clip((uv.y * (tex.height - 1)).astype(jnp.int32),
-                   0, tex.height - 1)
-    col = jnp.clip((uv.x * (tex.width - 1)).astype(jnp.int32),
-                   0, tex.width - 1)
-    return row * tex.width + col
-
-
-def packed_texel_table(tex: Texture):
-    """(H*W, 4) gather table of [r, g, b, 0] rows (16-byte rows are the
-    fast gather shape; see _gather)."""
-    return jnp.stack(
-        [tex.r, tex.g, tex.b, jnp.zeros_like(tex.r)], axis=-1)
 
 
 def sample_environment(tex, direction: Vec3, cfg, rng) -> Tuple[Vec3, object]:

@@ -12,7 +12,7 @@ import logging
 import sys
 
 
-def get_logger(name: str = "cprt_tpu", silent: bool = False) -> logging.Logger:
+def get_logger(name: str = "cprt", silent: bool = False) -> logging.Logger:
     logger = logging.getLogger(name)
     if not logger.handlers:
         h = logging.StreamHandler(sys.stderr)

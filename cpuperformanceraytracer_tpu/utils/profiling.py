@@ -1,6 +1,6 @@
 """Profiler integration + throughput accounting.
 
-TPU analog of the reference's QPC-based profiling machinery and
+The analog of the reference's QPC-based profiling machinery and
 PERFORMANCE_PROFILING_BUILD flag (SURVEY.md section 5): a context
 manager around jax.profiler for XProf traces, plus a roofline-style
 throughput report (rays/s, segments/s, bytes/frame) from the same

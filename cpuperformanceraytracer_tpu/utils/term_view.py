@@ -1,7 +1,7 @@
 """Terminal live preview: ANSI truecolor rendering of the progressive
 frame + a per-frame stats line.
 
-The TPU-native stand-in for the reference's interactive window: the
+The stand-in for the reference's interactive window: the
 StretchDIBits present becomes half-block truecolor cells (two image rows
 per character via '▀' with independent fg/bg colors), and the title-bar
 frame/render-time readout (Application.cpp:308-335) becomes a stats

@@ -10,12 +10,12 @@ Run: python tests/distributed_worker.py <pid> <nproc> <coordinator> [mode]
 
 ``mode`` (default "xla") selects the leg under test: "xla" / "pallas"
 render a forward frame with that backend; "grad" runs ONE
-value_and_grad step of the L2 pixel loss through
-sharded_render_frame_diff — the adjoint Pallas megakernel per shard
-with parameter gradients all-reduced through the shard_map transpose
-across the two REAL processes (the leg a 2-host deployment trains on;
-replaces work_queue.cpp:17-66). Prints per-key gradient summaries the
-parent compares against a single-process reference.
+value_and_grad step of the L2 pixel loss through sharded_render_frame
+— XLA's adjoint per shard with parameter gradients all-reduced through
+the shard_map transpose across the two REAL processes (the leg a
+2-host deployment trains on; replaces work_queue.cpp:17-66). Prints
+per-key gradient summaries the parent compares against a
+single-process reference.
 """
 
 import os
@@ -45,13 +45,13 @@ def main() -> int:
     from cpuperformanceraytracer_tpu.parallel.shard import sharded_render_frame
     from cpuperformanceraytracer_tpu.scene.presets import scene_by_name
 
-    # pallas: (6, 64) blocks — each of the 4*nproc row shards holds
-    # 48/(4*nproc) rows, which the tile height must divide
+    # pallas: each of the 4*nproc row shards holds 48/(4*nproc) = 6
+    # rows, padded to one 8-row block
     cfg = RenderConfig(width=64, height=48, spp=2, bounces=2,
                        scene="cornell_box", env_mode="none",
                        ambient=(0.1, 0.1, 0.1), jitter=True, rng="counter",
                        roulette="off", backend=backend,
-                       tile_height=6, tile_width=64)
+                       tile_height=8, tile_width=64)
     scene, camera = scene_by_name(cfg.scene)
     # host-local jax.Arrays cannot feed a multi-process global shard_map;
     # numpy leaves are accepted as implicitly-replicated inputs
@@ -59,30 +59,24 @@ def main() -> int:
     camera = jax.tree.map(np.asarray, camera)
 
     if backend == "grad":
-        import jax.numpy as jnp
-
         from cpuperformanceraytracer_tpu.diff.grad import (
             apply_params,
             image_loss,
             render_for_params,
-        )
-        from cpuperformanceraytracer_tpu.parallel.shard import (
-            sharded_render_frame_diff,
         )
         from cpuperformanceraytracer_tpu.texture.procedural import gradient_sky
         from cpuperformanceraytracer_tpu.texture.texture import (
             texture_from_array,
         )
 
-        cfg = cfg.replace(backend="pallas", env_mode="equirect",
+        cfg = cfg.replace(backend="xla", env_mode="equirect",
                           env_sampling="stochastic")
         tex = texture_from_array(gradient_sky(16, 8))
         tex = tex._replace(r=np.asarray(tex.r), g=np.asarray(tex.g),
                            b=np.asarray(tex.b))
         # px=2*nproc rows-shards x spp=2 sample-shards over the global mesh
         mesh = make_mesh((2 * nproc, 2), ("px", "spp"))
-        target = render_for_params({}, scene, camera, tex,
-                                   cfg.replace(backend="xla"), 0)
+        target = render_for_params({}, scene, camera, tex, cfg, 0)
         target = jax.tree.map(lambda x: np.asarray(x), target)
 
         albedo = np.stack([scene.materials.albedo.x,
@@ -96,7 +90,7 @@ def main() -> int:
 
         def loss_fn(p):
             s, t = apply_params(scene, tex, p)
-            img = sharded_render_frame_diff(s, camera, t, cfg, 3, mesh)
+            img = sharded_render_frame(s, camera, t, cfg, 3, mesh)
             return image_loss(img, target)
 
         loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)

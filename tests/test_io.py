@@ -75,7 +75,7 @@ def test_resume_rejects_image_affecting_mismatch(tmp_path):
         _, frame = resume_or_fresh(p, bad)
         assert frame == 0, f"should reject {bad}"
     # execution-strategy fields must NOT invalidate (same image)
-    for ok in (cfg.replace(backend="pallas", tile_width=8, tile_height=6),
+    for ok in (cfg.replace(backend="pallas", tile_width=8, tile_height=4),
                cfg.replace(num_frames=3), cfg.replace(exposure=2.0),
                cfg.replace(frames_per_dispatch=4)):
         _, frame = resume_or_fresh(p, ok)

@@ -1,23 +1,29 @@
-"""Pallas kernel parity tests (interpret mode on CPU).
+"""Pallas (Triton-route) kernel tests on the CPU.
 
-Strategy: decision-STABLE configs (pure diffuse materials, no lottery
-sensitivity) must match the oracle integrator to float tolerance
-everywhere; stochastic glass configs are checked with robust statistics
-(means + outlier fraction) because a 1-ulp transcendental difference can
-flip a lottery roll and legitimately diverge a single path.
+Parity runs the kernel in interpret mode. Strategy: decision-STABLE
+configs (pure diffuse materials, no lottery sensitivity) must match the
+oracle integrator to float tolerance everywhere; stochastic glass
+configs are checked with robust statistics (means + outlier fraction)
+because a 1-ulp transcendental difference can flip a lottery roll and
+legitimately diverge a single path.
+
+The CUDA-lowering rehearsals lower the compiled (non-interpret) kernel
+for the "cuda" platform on this CPU: a primitive the Triton route cannot
+lower, or a block shape it refuses, fails here without a GPU. What only
+the GPU's compiler can refuse (registers, PTX) is checked by the
+``gpu``-marked tests and chip_smoke.py.
 """
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 import pytest
 
 from cpuperformanceraytracer_tpu.config import RenderConfig
-from cpuperformanceraytracer_tpu.core.vecmath import Vec3
-from cpuperformanceraytracer_tpu.kernels.env_gather import gather_texels_mxu
-from cpuperformanceraytracer_tpu.kernels.megakernel import render_frame_pallas
-from cpuperformanceraytracer_tpu.kernels.tonemap import postprocess_pallas
-from cpuperformanceraytracer_tpu.core.color import postprocess_color
+from cpuperformanceraytracer_tpu.kernels.megakernel import (
+    num_warps,
+    padded_extent,
+    render_frame_pallas,
+)
 from cpuperformanceraytracer_tpu.render.frame import render_frame
 from cpuperformanceraytracer_tpu.scene.presets import (
     cornell_box_scene,
@@ -137,33 +143,27 @@ class TestMegakernelParity:
 
 
 class TestFusedCombine:
-    """kernels/combine.py: the lane-shuffle deinterleave + fused
-    combine/accumulate must match the unfused pallas path bit-tightly
-    (same kernel, same gather — only the combine arithmetic refactors)."""
+    """The jitted progressive frame step on the pallas backend (baked
+    scene, donated accumulation) must equal the kernel render + the
+    running-mean accumulate, frame by frame."""
 
     def _run(self, cfg, frames=3):
-        from cpuperformanceraytracer_tpu.kernels.megakernel import (
-            render_accumulate_pallas,
-            supports_fused_combine,
-        )
         from cpuperformanceraytracer_tpu.render.frame import (
             accumulate_frame,
+            make_frame_fn,
             zero_accum,
         )
 
-        assert supports_fused_combine(cfg)
         scene, cam = glass_spheres_scene()
         tex = texture_from_array(gradient_sky(64, 32))
-        a_old = zero_accum(cfg.replace(accum_layout="planar"))
+        step = make_frame_fn(cfg, scene=scene, camera=cam)
+        a_old = zero_accum(cfg)
         a_new = zero_accum(cfg)
-        from cpuperformanceraytracer_tpu.render.frame import accum_to_vec3
-
         for f in range(frames):
             color = render_frame_pallas(scene, cam, tex, cfg, f)
             a_old = accumulate_frame(a_old, color, f)
-            a_new = render_accumulate_pallas(scene, cam, tex, cfg, f, a_new)
-        for c_new, c_old in zip(accum_to_vec3(a_new, cfg),
-                                accum_to_vec3(a_old, cfg)):
+            a_new = step(scene, cam, tex, f, a_new)
+        for c_new, c_old in zip(a_new, a_old):
             np.testing.assert_allclose(np.asarray(c_new), np.asarray(c_old),
                                        rtol=1e-5, atol=1e-6)
 
@@ -178,113 +178,192 @@ class TestFusedCombine:
                        env_flip_xz=True, rng="counter", spp=3,
                        backend="pallas"), frames=2)
 
-    def test_fused_flat128_spp1(self):
-        """The opt-in flat128 layout (kept as a measured alternative)
-        must stay output-identical to the image-layout path."""
-        self._run(_cfg(scene="glass_spheres", bounces=3, jitter=True,
-                       env_mode="equirect", env_sampling="stochastic",
-                       env_flip_xz=True, backend="pallas",
-                       accum_layout="flat128"))
 
-    def test_flat128_odd_groups_per_row(self):
-        """flat128 at width 1920 (15 groups/row — an odd divisor whose
-        magic division needs the pre-shift-free path) must match the
-        image-layout render exactly."""
-        self._run(_cfg(width=1920, height=8, scene="glass_spheres",
-                       bounces=2, jitter=True, env_mode="equirect",
-                       env_sampling="stochastic", env_flip_xz=True,
-                       backend="pallas", tile_height=8,
-                       accum_layout="flat128"), frames=2)
-
-    def test_packed4_env_frame_step(self):
-        """Regression (round-3 advisor finding): packed4 accumulation with
-        pallas+env must route around the fused step (which emits planar
-        Vec3 only) and still match the planar path bit-for-bit."""
-        from cpuperformanceraytracer_tpu.kernels.megakernel import (
-            supports_fused_combine,
-        )
-        from cpuperformanceraytracer_tpu.render.frame import (
-            accum_to_vec3,
-            make_frame_fn,
-            zero_accum,
-        )
-
-        cfg = _cfg(scene="glass_spheres", bounces=2, jitter=True,
-                   env_mode="equirect", env_sampling="stochastic",
-                   env_flip_xz=True, backend="pallas",
-                   accum_layout="packed4")
-        assert not supports_fused_combine(cfg)
-        scene, cam = glass_spheres_scene()
-        tex = texture_from_array(gradient_sky(64, 32))
-        step_packed = make_frame_fn(cfg, scene=scene, camera=cam)
-        planar = cfg.replace(accum_layout="planar")
-        step_planar = make_frame_fn(planar, scene=scene, camera=cam)
-        a_pack = zero_accum(cfg)
-        a_plan = zero_accum(planar)
-        for f in range(2):
-            a_pack = step_packed(scene, cam, tex, f, a_pack)
-            a_plan = step_planar(scene, cam, tex, f, a_plan)
-        for c_new, c_old in zip(accum_to_vec3(a_pack, cfg),
-                                accum_to_vec3(a_plan, planar)):
-            np.testing.assert_allclose(np.asarray(c_new), np.asarray(c_old),
-                                       rtol=1e-5, atol=1e-6)
-
-    def test_deinterleave_exact(self):
-        from cpuperformanceraytracer_tpu.kernels.combine import (
-            combine_accumulate,
-        )
-
-        rs = np.random.RandomState(0)
-        h, w = 16, 256
-        e4 = rs.rand(h * w, 4).astype(np.float32)
-        rgb = Vec3(*(jnp.asarray(rs.rand(h, w).astype(np.float32))
-                     for _ in range(3)))
-        thr = Vec3(*(jnp.asarray(rs.rand(h, w).astype(np.float32))
-                     for _ in range(3)))
-        acc = Vec3(*(jnp.asarray(rs.rand(h, w).astype(np.float32))
-                     for _ in range(3)))
-        out = combine_accumulate(jnp.asarray(e4), rgb, thr, acc, 0.5)
-        e_img = e4.reshape(h, w, 4)
-        for c, (r_, t_, a_, o_) in enumerate(zip(rgb, thr, acc, out)):
-            want = np.asarray(a_) + (np.asarray(r_)
-                                     + e_img[:, :, c] * np.asarray(t_)
-                                     - np.asarray(a_)) * 0.5
-            np.testing.assert_allclose(np.asarray(o_), want,
-                                       rtol=1e-6, atol=1e-7)
+# (rng, spp, env_mode, bake_scene, early_exit); wang + spp>1 + env is
+# rejected by design (test_spp_env_restriction)
+_PARITY_CASES = [
+    ("wang", 1, "none", True, True),
+    ("wang", 1, "none", False, False),
+    ("wang", 2, "none", True, True),
+    ("wang", 2, "none", False, True),
+    ("wang", 1, "equirect", True, True),
+    ("wang", 1, "equirect", False, False),
+    ("counter", 1, "none", True, False),
+    ("counter", 2, "none", False, True),
+    ("counter", 1, "equirect", True, True),
+    ("counter", 1, "equirect", False, True),
+    ("counter", 2, "equirect", True, True),
+    ("counter", 2, "equirect", False, False),
+]
 
 
-class TestTonemapKernel:
-    def test_matches_xla_postprocess(self):
-        rs = np.random.RandomState(0)
-        acc = Vec3(*(jnp.asarray(rs.rand(32, 256).astype(np.float32) * 3)
-                     for _ in range(3)))
-        a = postprocess_color(acc, 1.0)
-        b = postprocess_pallas(acc, 1.0)
-        np.testing.assert_allclose(np.asarray(b.x), np.asarray(a.x),
-                                   rtol=1e-5, atol=1e-6)
+@pytest.mark.parametrize("rng,spp,env,bake,early", _PARITY_CASES)
+def test_kernel_parity_grid(rng, spp, env, bake, early):
+    """Diffuse cornell box (decision-stable): the kernel matches the
+    oracle to float tolerance across RNG family, samples per dispatch,
+    env mode, scene baking and the block early exit. The frame is not a
+    whole number of blocks, so padding and cropping run too."""
+    scene, cam = cornell_box_scene()
+    tex = texture_from_array(gradient_sky(32, 16)) if env != "none" else None
+    cfg = _cfg(width=40, height=12, rng=rng, spp=spp, env_mode=env,
+               env_sampling="stochastic", jitter=True, bake_scene=bake,
+               early_exit=early, tile_height=8, tile_width=32)
+    a = render_frame(scene, cam, tex, cfg, 3)
+    b = render_frame_pallas(scene, cam, tex, cfg, 3)
+    for ca, cb in zip(a, b):
+        assert cb.shape == (12, 40)
+        np.testing.assert_allclose(np.asarray(cb), np.asarray(ca),
+                                   rtol=1e-4, atol=1e-5)
 
-    def test_fallback_on_awkward_shapes(self):
-        acc = Vec3(*(jnp.ones((7, 13)) for _ in range(3)))
-        b = postprocess_pallas(acc, 1.0)
-        assert np.asarray(b.x).shape == (7, 13)
+
+@pytest.mark.parametrize("height,width,tile,want", [
+    (720, 1280, (8, 32), (720, 1280)),
+    (1080, 1920, (8, 64), (1080, 1920)),
+    (240, 320, (8, 64), (240, 320)),
+    (77, 100, (8, 64), (80, 128)),
+    (540, 3840, (8, 64), (544, 3840)),
+])
+def test_padded_extent(height, width, tile, want):
+    """Frames are padded to whole power-of-two blocks (the 4K frame's
+    540-row shard on a 4-card mesh included)."""
+    assert padded_extent(height, width, *tile) == want
 
 
-class TestEnvGatherKernel:
-    def test_exact_vs_direct_index(self):
-        tex = texture_from_array(gradient_sky(64, 32, seed=3))
-        rs = np.random.RandomState(1)
-        rows = jnp.asarray(rs.randint(0, tex.height, (2048,)), jnp.int32)
-        cols = jnp.asarray(rs.randint(0, tex.width, (2048,)), jnp.int32)
-        got = gather_texels_mxu(tex, rows, cols)
-        want_r = np.asarray(tex.r)[np.asarray(rows) * tex.width + np.asarray(cols)]
-        want_g = np.asarray(tex.g)[np.asarray(rows) * tex.width + np.asarray(cols)]
-        np.testing.assert_allclose(np.asarray(got.x), want_r, rtol=2e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(got.y), want_g, rtol=2e-5, atol=1e-6)
+def test_num_warps_from_block():
+    assert num_warps(8, 64, 2) == 8
+    assert num_warps(8, 64, 4) == 4
+    assert num_warps(2, 2, 2) == 1       # clamped below
+    assert num_warps(64, 256, 1) == 32   # clamped above
 
-    def test_nonmultiple_chunk_padding(self):
-        tex = texture_from_array(gradient_sky(16, 8, seed=4))
-        rows = jnp.asarray([0, 7, 3], jnp.int32)
-        cols = jnp.asarray([0, 15, 9], jnp.int32)
-        got = gather_texels_mxu(tex, rows, cols)
-        want = np.asarray(tex.r)[np.asarray(rows) * 16 + np.asarray(cols)]
-        np.testing.assert_allclose(np.asarray(got.x), want, rtol=2e-5, atol=1e-6)
+
+def test_odd_frame_padding_matches_oracle():
+    """100x77 (no power-of-two factor in either dimension) through the
+    whole frame step: the cropped padded render equals the oracle."""
+    from cpuperformanceraytracer_tpu.render.frame import make_frame_fn, zero_accum
+
+    scene, cam = cornell_box_scene()
+    cfg = _cfg(width=100, height=77, backend="pallas", tile_height=8,
+               tile_width=64, jitter=True)
+    step = make_frame_fn(cfg, scene=scene, camera=cam)
+    got = step(scene, cam, None, 0, zero_accum(cfg))
+    want = render_frame(scene, cam, None, cfg, 0)
+    for cg, cw in zip(got, want):
+        assert cg.shape == (77, 100)
+        np.testing.assert_allclose(np.asarray(cg), np.asarray(cw),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_tile_must_be_power_of_two():
+    with pytest.raises(ValueError, match="power of two"):
+        _cfg(tile_height=24).validate()
+    with pytest.raises(ValueError, match="power of two"):
+        _cfg(tile_width=320).validate()
+
+
+# ---------------------------------------------------------------------------
+# CUDA-lowering rehearsals (no GPU needed)
+# ---------------------------------------------------------------------------
+
+
+def _triton_modules(lowered):
+    """The Triton IR text of every Triton custom call in a lowering."""
+    from jax._src.lib.mlir import ir
+    from jax._src.pallas.triton.lowering import _new_ir_context
+
+    blobs = []
+
+    def walk(op):
+        for region in op.regions:
+            for block in region.blocks:
+                for o in block.operations:
+                    if o.operation.name == "stablehlo.custom_call" and (
+                            "xla.gpu.triton" in str(
+                                o.attributes["call_target_name"])):
+                        cfg = ir.DictAttr(o.attributes["mhlo.backend_config"])
+                        blobs.append(ir.StringAttr(cfg["ir"]).value_bytes)
+                    walk(o.operation)
+
+    walk(lowered.compiler_ir("stablehlo").operation)
+    texts = []
+    with _new_ir_context(), ir.Location.unknown():
+        for b in blobs:
+            texts.append(str(ir.Module.parse(b)))
+    return texts
+
+
+_FAMILIES = {
+    # the reference default workload (wang, baked, env, stochastic)
+    "headline": dict(scene="glass_spheres", env_mode="equirect",
+                     env_sampling="stochastic", env_flip_xz=True,
+                     jitter=True, roulette="v4_quirk", bounces=8),
+    # simd_tiled_720: counter RNG, 4 samples per dispatch, no env
+    "simd_tiled": dict(scene="glass_spheres", env_mode="none", spp=4,
+                       rng="counter", jitter=True, roulette="v4_quirk"),
+    # traced (unbaked) scene: tables read as scalars from device memory
+    "traced_scene": dict(scene="glass_spheres", env_mode="equirect",
+                         bake_scene=False, roulette="terminate"),
+    # cubemap + bilinear env, zangle sampler (sin/cos), no early exit
+    "cubemap_zangle": dict(scene="glass_spheres", env_mode="cubemap",
+                           env_sampling="bilinear",
+                           unit_vector_sampler="zangle", early_exit=False),
+    # textured_1080: counter RNG with per-sample env dispatches
+    "multi_sample_env": dict(scene="glass_spheres", env_mode="equirect",
+                             rng="counter", spp=2),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILIES))
+def test_cuda_lowering_rehearsal(family):
+    """The compiled kernel of each config family lowers for CUDA: one
+    Triton call per dispatch, normalization through libdevice's rsqrt
+    (the instruction XLA emits for the oracle's normalize), the bounce
+    loop rolled."""
+    scene, cam = glass_spheres_scene()
+    kw = _FAMILIES[family]
+    cfg = _cfg(width=96, height=20, tile_height=8, tile_width=64, **kw)
+    tex = None
+    if cfg.env_mode == "equirect":
+        tex = texture_from_array(gradient_sky(32, 16))
+    elif cfg.env_mode == "cubemap":
+        tex = texture_from_array(gradient_sky(8, 48))
+    fn = jax.jit(lambda t, f: render_frame_pallas(scene, cam, t, cfg, f))
+    lowered = fn.trace(tex, 1).lower(lowering_platforms=("cuda",))
+    mods = _triton_modules(lowered)
+    dispatches = cfg.spp if cfg.env_mode != "none" else 1
+    assert len(mods) == dispatches
+    for text in mods:
+        assert "__nv_rsqrtf" in text
+        assert "scf.while" in text
+
+
+def test_cuda_lowering_sharded_window(devices8):
+    """The kernel under shard_map (traced row0 from axis_index, padded
+    540-row-like shard) lowers for CUDA on a 4-device mesh."""
+    from cpuperformanceraytracer_tpu.parallel.mesh import make_mesh
+    from cpuperformanceraytracer_tpu.parallel.shard import sharded_render_frame
+
+    scene, cam = cornell_box_scene()
+    mesh = make_mesh((4, 1), ("px", "spp"), devices=devices8[:4])
+    cfg = _cfg(width=64, height=24, backend="pallas", tile_height=8,
+               tile_width=64, rng="counter")
+    fn = jax.jit(lambda f: sharded_render_frame(scene, cam, None, cfg, f,
+                                                mesh))
+    lowered = fn.trace(1).lower(lowering_platforms=("cuda",))
+    assert len(_triton_modules(lowered)) == 1
+
+
+def test_interpret_only_on_cpu_lowering():
+    """The interpreter is chosen by the platform the call is lowered
+    for: the CPU lowering holds no Triton call (it interprets), the CUDA
+    lowering holds the Triton call and nothing of the interpreter."""
+    scene, cam = cornell_box_scene()
+    cfg = _cfg(width=64, height=8, tile_height=8, tile_width=64)
+    fn = jax.jit(lambda f: render_frame_pallas(scene, cam, None, cfg, f))
+    cpu = fn.trace(0).lower(lowering_platforms=("cpu",))
+    cuda = fn.trace(0).lower(lowering_platforms=("cuda",))
+    assert "xla.gpu.triton" not in cpu.as_text()
+    assert "xla.gpu.triton" in cuda.as_text()
+    # the interpreter's per-block loop over the grid is a while loop in
+    # the CPU module; the CUDA module has none outside the kernel
+    assert "stablehlo.while" in cpu.as_text()
+    assert "stablehlo.while" not in cuda.as_text()

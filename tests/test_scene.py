@@ -105,14 +105,13 @@ def test_builder_empty_scene_padding():
 
 
 def test_with_auto_tiles():
+    """Any resolution is valid with any power-of-two block: the kernel
+    pads the frame to whole blocks (no per-resolution tile search)."""
     from cpuperformanceraytracer_tpu.config import RenderConfig
+    from cpuperformanceraytracer_tpu.kernels.megakernel import padded_extent
 
-    c = RenderConfig(width=640, height=360, backend="pallas").with_auto_tiles()
-    assert c.width % c.tile_width == 0 and c.height % c.tile_height == 0
-    assert c.tile_width == 128
-    c = RenderConfig(width=320, height=240, backend="pallas",
-                     tile_width=320, tile_height=24).with_auto_tiles()
-    assert (c.tile_width, c.tile_height) == (320, 24)  # kept when divisible
-    c = RenderConfig(width=100, height=77, backend="pallas").with_auto_tiles()
-    assert c.width % c.tile_width == 0 and c.height % c.tile_height == 0
-    c.validate()
+    for w, h in ((640, 360), (320, 240), (100, 77)):
+        c = RenderConfig(width=w, height=h, backend="pallas").validate()
+        hp, wp = padded_extent(h, w, c.tile_height, c.tile_width)
+        assert hp % c.tile_height == 0 and wp % c.tile_width == 0
+        assert 0 <= hp - h < c.tile_height and 0 <= wp - w < c.tile_width

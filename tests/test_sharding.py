@@ -178,15 +178,11 @@ def test_training_step_collective_bytes(devices8):
     from cpuperformanceraytracer_tpu.parallel.budget import (
         training_step_comm_elements,
     )
-    from cpuperformanceraytracer_tpu.parallel.shard import (
-        sharded_render_frame_diff,
-    )
     from cpuperformanceraytracer_tpu.core.vecmath import Vec3
 
     scene, cam = cornell_box_scene()
     tex = texture_from_array(gradient_sky(32, 16))
     cfg = _cfg(width=128, height=64, spp=2, bounces=2,
-               backend="pallas", tile_height=8, tile_width=128,
                rng="counter", env_mode="equirect")
     n_px, n_spp = 4, 2
     mesh = make_mesh((n_px, n_spp), ("px", "spp"))
@@ -199,7 +195,7 @@ def test_training_step_collective_bytes(devices8):
     def loss(p):
         s, t = apply_params(scene, tex, p)
         return image_loss(
-            sharded_render_frame_diff(s, cam, t, cfg, 1, mesh), target)
+            sharded_render_frame(s, cam, t, cfg, 1, mesh), target)
 
     hlo = jax.jit(jax.value_and_grad(loss)).lower(params).compile().as_text()
 
